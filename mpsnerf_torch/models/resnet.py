@@ -1,0 +1,57 @@
+"""Pixel-aligned 2D image encoder: the first two stages of ResNet-34 (port
+of ``mpsnerf_tpu/models/resnet.py:SpatialEncoder`` at ``num_layers=2``).
+
+A 2x2 area downsample of the input, conv1 + BN + ReLU, then ``layer1``
+(three 64-channel BasicBlocks, no max-pool); both stage outputs share one
+resolution, so the align-corners resize is the identity and they are
+concatenated: 128 channels at 1/4 of the input resolution.  BN uses its
+running statistics in eval mode.  Module names follow the reference
+checkpoint (``encoder_2d.model.*``, torchvision's ResNet names).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class BasicBlock(nn.Module):
+    """A stride-1 ResNet BasicBlock with equal in/out channels."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(ch, ch, 3, 1, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+        self.conv2 = nn.Conv2d(ch, ch, 3, 1, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        return F.relu(self.bn2(self.conv2(y)) + x)
+
+
+class _Backbone(nn.Module):
+    """The ResNet-34 trunk's used stages, under torchvision's names."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64, eps=1e-5, momentum=0.1)
+        self.layer1 = nn.Sequential(*(BasicBlock(64) for _ in range(3)))
+
+
+class SpatialEncoder(nn.Module):
+    """images (V, 3, H, W) -> latent (V, 128, H/4, W/4)."""
+
+    LATENT_CHANNELS = 128
+
+    def __init__(self):
+        super().__init__()
+        self.model = _Backbone()
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = F.avg_pool2d(images, 2)  # area downsample by 2
+        m = self.model
+        x = F.relu(m.bn1(m.conv1(x)))
+        return torch.cat([x, m.layer1(x)], dim=1)

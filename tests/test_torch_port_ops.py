@@ -1,0 +1,338 @@
+"""Parity of the PyTorch port's ops (``mpsnerf_torch.ops``) with the JAX
+package's, on the CPU: the same seeded numpy inputs go through both.
+
+On the CPU the 1-NN wrapper takes the kernel's plain version; the CUDA
+kernel itself is held against that plain version on the card by
+``chip_smoke.py``.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mpsnerf_tpu.ops import body_grid as j_body_grid
+from mpsnerf_tpu.ops import compact as j_compact
+from mpsnerf_tpu.ops import composite as j_composite
+from mpsnerf_tpu.ops import grid_sample as j_grid_sample
+from mpsnerf_tpu.ops import knn as j_knn
+from mpsnerf_tpu.ops import positional as j_positional
+from mpsnerf_tpu.smpl import lbs as j_lbs
+from mpsnerf_tpu.smpl.model import synthetic_smpl as j_synthetic_smpl
+
+from mpsnerf_torch.ops import body_grid as t_body_grid
+from mpsnerf_torch.ops import compact as t_compact
+from mpsnerf_torch.ops import composite as t_composite
+from mpsnerf_torch.ops import grid_sample as t_grid_sample
+from mpsnerf_torch.ops import knn as t_knn
+from mpsnerf_torch.ops import positional as t_positional
+from mpsnerf_torch.smpl import lbs as t_lbs
+from mpsnerf_torch.smpl.model import synthetic_smpl as t_synthetic_smpl
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+
+
+def _brute(q, v, block=512):
+    d2s, ids = [], []
+    for s in range(0, len(q), block):
+        d = ((q[s:s + block, None, :] - v[None, :, :]) ** 2).sum(-1)
+        d2s.append(d.min(1))
+        ids.append(d.argmin(1))
+    return np.concatenate(d2s), np.concatenate(ids)
+
+
+def _check_knn(ids, d2, q, v, atol=1e-4):
+    """The criterion of tests/test_ops.py:TestKNN._check: argmin ties can
+    flip on fp noise, so the chosen vertex's distance and the returned
+    distance must equal the true minimum, and >= 95 % of ids must match."""
+    bd, bi = _brute(q, v)
+    ids = np.asarray(ids)
+    chosen = ((q - v[ids]) ** 2).sum(-1)
+    np.testing.assert_allclose(chosen, bd, atol=atol)
+    np.testing.assert_allclose(np.asarray(d2), bd, atol=atol)
+    assert (ids == bi).mean() > 0.95
+
+
+@pytest.fixture(scope="module")
+def rig():
+    """The full 6890-vertex synthetic rig in both packages, with a pose."""
+    rng = np.random.default_rng(0)
+    params = {
+        "poses": (rng.normal(size=72) * 0.2).astype(np.float32),
+        "shapes": (rng.normal(size=10) * 0.3).astype(np.float32),
+        "R": np.eye(3, dtype=np.float32),
+        "Th": np.asarray([[0.1, -0.2, 0.3]], np.float32),
+    }
+    j_smpl = j_synthetic_smpl(n_verts=6890, seed=0)
+    t_smpl = t_synthetic_smpl(n_verts=6890, seed=0, device="cpu")
+    return j_smpl, t_smpl, params
+
+
+def test_port_imports_without_jax_flax_cv2_or_jax_package():
+    """Every module of the port imports with jax, flax, cv2 and the JAX
+    package made unimportable (the card's machine has none of them)."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'flax', 'cv2', 'mpsnerf_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib, pkgutil, mpsnerf_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    mpsnerf_torch.__path__, 'mpsnerf_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert len(names) >= 25, names\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+class TestNearestVertex:
+    def test_plain_matches_xla_full_rig(self, rig):
+        """4096 queries against the 6890-vertex rig: the plain version
+        against nearest_vertex_xla and brute force."""
+        j_smpl, _, _ = rig
+        v = np.asarray(j_smpl.v_template)
+        rng = np.random.default_rng(3)
+        q = (v[rng.integers(0, len(v), 4096)]
+             + rng.normal(size=(4096, 3)) * 0.05).astype(np.float32)
+        d2_t, ids_t = t_knn.nearest_vertex(_t(q), _t(v))
+        d2_j, ids_j = j_knn.nearest_vertex_xla(jnp.asarray(q), jnp.asarray(v))
+        _check_knn(ids_t.numpy(), d2_t.numpy(), q, v)
+        _check_knn(np.asarray(ids_j), np.asarray(d2_j), q, v)
+        # the XLA oracle is the |q|^2 - 2q.v + |v|^2 form: its d2 carries
+        # ~1e-6 cancellation error, and near-ties may pick another id
+        np.testing.assert_allclose(d2_t.numpy(), np.asarray(d2_j), atol=1e-4)
+        assert (ids_t.numpy() == np.asarray(ids_j)).mean() > 0.95
+        assert ids_t.dtype == torch.int64
+
+    @pytest.mark.parametrize("nq,nv,seed", [(600, 300, 1), (777, 250, 0)])
+    def test_plain_matches_pallas_interpret(self, nq, nv, seed):
+        """Against the TPU kernel run in interpret mode, at the sizes of
+        tests/test_ops.py (1e-3: the packed key truncates d2's low bits)."""
+        rng = np.random.default_rng(seed)
+        q = rng.normal(size=(nq, 3)).astype(np.float32)
+        v = rng.normal(size=(nv, 3)).astype(np.float32)
+        d2_t, ids_t = t_knn.nearest_vertex(_t(q), _t(v))
+        d2_p, ids_p = j_knn.nearest_vertex_pallas(
+            jnp.asarray(q), jnp.asarray(v), interpret=True)
+        _check_knn(ids_t.numpy(), d2_t.numpy(), q, v)
+        _check_knn(np.asarray(ids_p), np.asarray(d2_p), q, v, atol=1e-3)
+        assert (ids_t.numpy() == np.asarray(ids_p)).mean() > 0.95
+
+    def test_plain_is_diff_form_lowest_index_on_ties(self):
+        """d2 is exactly (dx*dx + dy*dy) + dz*dz at the returned id, the
+        id is the lowest of tied vertices, and blocking changes nothing."""
+        v = torch.tensor([[1.0, 0, 0], [0, 1.0, 0], [1.0, 0, 0], [0, 0, 2.0]])
+        q = torch.tensor([[0.0, 0, 0], [2.0, 0, 0], [0, 0, 1.9]])
+        d2, ids = t_knn.nearest_vertex_plain(q, v, block_elems=4)
+        assert ids.tolist() == [0, 0, 3]
+        diff = q - v[ids]
+        exact = (diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]) \
+            + diff[:, 2] * diff[:, 2]
+        assert torch.equal(d2, exact)
+        d2b, idsb = t_knn.nearest_vertex_plain(q, v)
+        assert torch.equal(d2, d2b) and torch.equal(ids, idsb)
+
+    def test_cpu_tensors_never_count_a_launch(self, rig):
+        _, t_smpl, _ = rig
+        before = t_knn.LAUNCHES["nearest_vertex"]
+        t_knn.nearest_vertex(t_smpl.v_template[:100].contiguous(),
+                             t_smpl.v_template)
+        assert t_knn.LAUNCHES["nearest_vertex"] == before == 0
+
+    @pytest.mark.parametrize("case", ["cpu", "dtype", "shape"])
+    def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(self, case):
+        """The kernel wrapper raises (it never falls back) on a CPU tensor,
+        a non-float32 tensor or a non-(n, 3) shape."""
+        q = torch.zeros(8, 3)
+        v = torch.ones(5, 3)
+        if case == "dtype":
+            q = q.double()
+        elif case == "shape":
+            q = torch.zeros(8, 4)
+        with pytest.raises((ValueError, TypeError)):
+            t_knn.nearest_vertex_cuda(q, v)
+        assert t_knn.LAUNCHES["nearest_vertex"] == 0
+
+
+class TestCompaction:
+    @pytest.mark.parametrize("capacity", [1024, 2048, 6144])
+    def test_plan_resize_and_expand_scatter_exact(self, capacity):
+        """Integer plans equal JAX's exactly, with and without drops;
+        expand_scatter is pure data movement, so floats are equal too."""
+        rng = np.random.default_rng(capacity)
+        n = 5000
+        mask = (rng.uniform(size=n) < 0.3).astype(np.int32)
+        jp = j_compact.plan_compaction(jnp.asarray(mask), capacity)
+        tp = t_compact.plan_compaction(_t(mask), capacity)
+        for a, b in zip(jp, tp):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        small = capacity // 2
+        jr = j_compact.resize_plan(jp, small)
+        tr = t_compact.resize_plan(tp, small)
+        for a, b in zip(jr, tr):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        buf = rng.normal(size=(small, 4)).astype(np.float32)
+        je = j_compact.expand_scatter(jr, jnp.asarray(buf), -80.0)
+        te = t_compact.expand_scatter(tr, _t(buf), -80.0)
+        np.testing.assert_array_equal(np.asarray(je), te.numpy())
+        tg = t_compact.expand_gather(tr, _t(buf), -80.0)
+        np.testing.assert_array_equal(np.asarray(je), tg.numpy())
+        x = rng.normal(size=(n, 3)).astype(np.float32)
+        np.testing.assert_array_equal(
+            np.asarray(j_compact.compact(jr, jnp.asarray(x))),
+            t_compact.compact(tr, _t(x)).numpy())
+
+
+def test_body_grid_and_lookup_exact(rig):
+    """The host grid is the same array, and the candidate masks are equal
+    (exact: the same float32 floor of the same values)."""
+    j_smpl, _, _ = rig
+    v = np.asarray(j_smpl.v_template)
+    jg = j_body_grid.build_body_grid(v)
+    tg = t_body_grid.build_body_grid(v)
+    for a, b in zip(jg, tg):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    rng = np.random.default_rng(5)
+    q = np.concatenate([
+        v[rng.integers(0, len(v), 3000)] + rng.normal(size=(3000, 3)) * 0.08,
+        rng.uniform(-3, 3, size=(1000, 3)),
+    ]).astype(np.float32)
+    jm = np.asarray(j_body_grid.grid_lookup(jg, jnp.asarray(q)))
+    tm = t_body_grid.grid_lookup(tg, _t(q)).numpy()
+    np.testing.assert_array_equal(jm, tm)
+    assert 0.2 < tm.mean() < 0.9
+
+
+def test_grid_sample_patch_and_index_features(rig):
+    """atol 1e-6: the same bilinear weights and corner reads in fp32; only
+    the summation can round differently (values are O(1))."""
+    rng = np.random.default_rng(6)
+    img = rng.normal(size=(3, 8, 17, 13)).astype(np.float32)
+    coords = rng.uniform(-1.3, 1.3, size=(3, 200, 2)).astype(np.float32)
+    j = j_grid_sample.grid_sample_2d_patch(jnp.asarray(img), jnp.asarray(coords))
+    t = t_grid_sample.grid_sample_2d_patch(_t(img), _t(coords))
+    np.testing.assert_allclose(np.asarray(j), t.numpy(), atol=1e-6)
+    uv = rng.uniform(-5, 70, size=(3, 200, 2)).astype(np.float32)
+    j = j_grid_sample.index_features_patch(jnp.asarray(img), jnp.asarray(uv),
+                                           (64.0, 68.0))
+    t = t_grid_sample.index_features_patch(_t(img), _t(uv), (64.0, 68.0))
+    np.testing.assert_allclose(np.asarray(j), t.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("num_freqs", [4, 6])
+def test_positional_encoding(num_freqs):
+    """atol 1e-5: sin/cos of the same fp32 arguments from two libms."""
+    rng = np.random.default_rng(num_freqs)
+    x = rng.uniform(-1.5, 1.5, size=(500, 3)).astype(np.float32)
+    j = j_positional.positional_encoding(jnp.asarray(x), num_freqs)
+    t = t_positional.positional_encoding(_t(x), num_freqs)
+    np.testing.assert_allclose(np.asarray(j), t.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("white_bkgd,occupancy",
+                         [(False, False), (True, False), (False, True)])
+def test_composite_rays_and_z_vals(white_bkgd, occupancy):
+    """The depth ladder is bit-identical (jnp.linspace's rounding);
+    compositing agrees to 1e-5 (exp / cumprod / sums in fp32)."""
+    rng = np.random.default_rng(7)
+    r, s = 64, 32
+    near = rng.uniform(1.0, 1.5, size=(r, 1)).astype(np.float32)
+    far = near + rng.uniform(0.5, 1.0, size=(r, 1)).astype(np.float32)
+    zj = j_composite.stratified_z_vals(None, jnp.asarray(near),
+                                       jnp.asarray(far), s, 0.0)
+    zt = t_composite.stratified_z_vals(_t(near), _t(far), s)
+    np.testing.assert_array_equal(np.asarray(zj), zt.numpy())
+    raw_rgb = rng.normal(size=(r, s, 3)).astype(np.float32) * 3
+    raw_sigma = rng.normal(size=(r, s)).astype(np.float32) * 5
+    raw_sigma[:8] = -80.0
+    rays_d = rng.normal(size=(r, 3)).astype(np.float32)
+    j = j_composite.composite_rays(jnp.asarray(raw_rgb), jnp.asarray(raw_sigma),
+                                   zj, jnp.asarray(rays_d),
+                                   occupancy=occupancy, white_bkgd=white_bkgd)
+    t = t_composite.composite_rays(_t(raw_rgb), _t(raw_sigma), zt, _t(rays_d),
+                                   occupancy=occupancy, white_bkgd=white_bkgd)
+    for name in ("rgb_map", "acc_map", "weights", "depth_map"):
+        np.testing.assert_allclose(np.asarray(getattr(j, name)),
+                                   getattr(t, name).numpy(), atol=1e-5,
+                                   err_msg=name)
+
+
+def test_stratified_jitter_uses_injected_noise():
+    """perturb > 0 takes the caller's uniform noise: u = 0 gives each
+    bin's lower edge, u = 1 its upper edge."""
+    near = torch.full((2, 1), 1.0)
+    far = torch.full((2, 1), 2.0)
+    z = t_composite.stratified_z_vals(near, far, 5)
+    lo = t_composite.stratified_z_vals(near, far, 5, 1.0, torch.zeros(2, 5))
+    hi = t_composite.stratified_z_vals(near, far, 5, 1.0, torch.ones(2, 5))
+    mids = 0.5 * (z[:, 1:] + z[:, :-1])
+    assert torch.equal(lo[:, 1:], mids) and torch.equal(lo[:, 0], z[:, 0])
+    assert torch.equal(hi[:, :-1], mids) and torch.equal(hi[:, -1], z[:, -1])
+    with pytest.raises(ValueError):
+        t_composite.stratified_z_vals(near, far, 5, 1.0)
+
+
+@pytest.mark.parametrize("mean_shape", [False, True])
+def test_lbs_warps(rig, mean_shape):
+    """Pose transforms and both warps at atol 1e-5 (fp32 products of
+    O(1) transforms, summed in another order)."""
+    j_smpl, t_smpl, params = rig
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    tparams = {k: _t(v) for k, v in params.items()}
+    jtf = j_lbs.PoseTransforms.create(j_smpl, jparams)
+    ttf = t_lbs.PoseTransforms.create(t_smpl, tparams)
+    for name in ("A", "A_big", "joints", "pose_offsets", "shape_offsets"):
+        np.testing.assert_allclose(np.asarray(getattr(jtf, name)),
+                                   getattr(ttf, name).numpy(), atol=1e-5,
+                                   err_msg=name)
+    rng = np.random.default_rng(8)
+    ids = rng.integers(0, 6890, 1000).astype(np.int32)
+    pts = (np.asarray(j_smpl.v_template)[ids]
+           + rng.normal(size=(1000, 3)) * 0.03).astype(np.float32)
+    j_can = j_lbs.deform_target_to_canonical(
+        j_smpl, jtf, jnp.asarray(pts), jnp.asarray(ids), mean_shape)
+    t_can = t_lbs.deform_target_to_canonical(
+        t_smpl, ttf, _t(pts), _t(ids).long(), mean_shape)
+    np.testing.assert_allclose(np.asarray(j_can), t_can.numpy(), atol=1e-5)
+    j_out = j_lbs.deform_canonical_to_source(
+        j_smpl, jtf, j_can, jnp.asarray(ids), None, mean_shape)
+    t_out = t_lbs.deform_canonical_to_source(
+        t_smpl, ttf, t_can, _t(ids).long(), mean_shape)
+    for a, b in zip(j_out, t_out):
+        np.testing.assert_allclose(np.asarray(a), b.numpy(), atol=1e-5)
+    np.testing.assert_allclose(
+        np.asarray(j_lbs.posed_vertices(j_smpl, jparams)),
+        t_lbs.posed_vertices(t_smpl, tparams).numpy(), atol=1e-5)
+
+
+def test_rodrigues_and_rigid_transforms():
+    """Kinematics at atol 1e-6 (a zero axis-angle maps to the identity)."""
+    from mpsnerf_tpu.smpl import kinematics as j_kin
+    from mpsnerf_torch.smpl import kinematics as t_kin
+
+    rng = np.random.default_rng(9)
+    r = (rng.normal(size=(24, 3)) * 0.5).astype(np.float32)
+    r[3] = 0.0
+    jr = j_kin.rodrigues(jnp.asarray(r))
+    tr = t_kin.rodrigues(_t(r))
+    np.testing.assert_allclose(np.asarray(jr), tr.numpy(), atol=1e-6)
+    np.testing.assert_allclose(tr[3].numpy(), np.eye(3), atol=1e-6)
+    joints = rng.normal(size=(24, 3)).astype(np.float32)
+    parents = j_synthetic_smpl(n_verts=100, seed=0).parents
+    ja = j_kin.rigid_transforms(jr, jnp.asarray(joints), np.asarray(parents))
+    ta = t_kin.rigid_transforms(tr, _t(joints), parents)
+    np.testing.assert_allclose(np.asarray(ja), ta.numpy(), atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(j_kin.big_pose_vector()),
+                                  t_kin.big_pose_vector().numpy())
