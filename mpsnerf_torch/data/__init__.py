@@ -12,10 +12,12 @@ from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
 from mpsnerf_torch.data.voxelize import voxelize_vertices
 from mpsnerf_torch.ops.body_grid import BodyGrid, build_body_grid, grid_to
 
-# per-view ray and image stacks are read on the host only (sliced per view)
-HOST_ONLY_KEYS = (
-    "msk_all", "ray_o_all", "ray_d_all", "rgb_all", "near_all", "far_all",
-    "mask_at_box_all", "bkgd_msk_all", "msk_cihp_all", "o_img_all",
+# per-view ray and image stacks: read on the host by the view renderer
+# (sliced per view); the trainer takes the ray stacks to the device
+RAY_KEYS = ("ray_o_all", "ray_d_all", "rgb_all", "near_all", "far_all",
+            "bkgd_msk_all")
+HOST_ONLY_KEYS = RAY_KEYS + (
+    "msk_all", "mask_at_box_all", "msk_cihp_all", "o_img_all",
 )
 
 
@@ -26,12 +28,14 @@ def attach_body_grid(item: Dict, voxel: float = 0.02) -> Dict:
     return item
 
 
-def to_device_input(item: Dict, device="cuda") -> Dict:
+def to_device_input(item: Dict, device="cuda", rays: bool = False) -> Dict:
     """Host item -> tensors on ``device`` (nested params and the body grid
-    included; host-only stacks and ``_``-prefixed caches skipped)."""
+    included; host-only stacks and ``_``-prefixed caches skipped, except
+    the per-view ray stacks when ``rays``, as the trainer reads them)."""
     out = {}
     for k, v in item.items():
-        if k in HOST_ONLY_KEYS or k.startswith("_"):
+        if k.startswith("_") or (k in HOST_ONLY_KEYS
+                                 and not (rays and k in RAY_KEYS)):
             continue
         if isinstance(v, BodyGrid):
             out[k] = grid_to(v, device)

@@ -1,14 +1,16 @@
 """Procedural multi-view human scene (port of
-``mpsnerf_tpu/data/synthetic.py`` for the test split, without OpenCV and
-without jax).
+``mpsnerf_tpu/data/synthetic.py``, without OpenCV and without jax).
 
 The item schema is the JAX package's: a synthetic SMPL subject, cameras on
 a ring, images made by splatting the posed vertices coloured by their
-canonical position, masks from the splat footprint, and every pixel's ray.
-OpenCV's ``dilate`` (5x5 ones) and ``GaussianBlur((5, 5), 0)`` (the fixed
-[1, 4, 6, 4, 1] / 16 kernel, reflect-101 border) are redone with scipy.
-The ground-truth ray colours (``rgb_all``) and the train-split ray sampler
-are not part of this port yet.
+canonical position, masks from the splat footprint, and each output view's
+rays from ``rays.sample_rays_batch``: ``n_rays`` body/background-sampled
+rays in the train split (drawn from the dataset's seeded numpy generator
+in the JAX package's order, so one seed gives the same rays), every
+pixel's ray in the test split.  OpenCV's ``dilate`` (5x5 ones) and
+``GaussianBlur((5, 5), 0)`` (the fixed [1, 4, 6, 4, 1] / 16 kernel,
+reflect-101 border) are redone with scipy.  The default split is "test"
+(the serving path's); the JAX package defaults to "train".
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 from scipy import ndimage
 
 from mpsnerf_torch.data.voxelize import voxelize_vertices
-from mpsnerf_torch.rays.rays import full_image_rays, get_rays
+from mpsnerf_torch.rays.rays import RayBatch, sample_rays_batch
 from mpsnerf_torch.smpl.kinematics import big_pose_vector
 from mpsnerf_torch.smpl.lbs import posed_vertices
 from mpsnerf_torch.smpl.model import SMPLModel, synthetic_smpl
@@ -79,7 +81,7 @@ def _splat_image(verts_world, colors, K, R, T, H: int, W: int):
 
 class SyntheticHumanDataset:
     """Multi-pose, multi-view synthetic subject(s) with the sp/tp item
-    schema of the test split (every pixel's ray)."""
+    schema."""
 
     def __init__(
         self,
@@ -90,8 +92,12 @@ class SyntheticHumanDataset:
         n_verts: int = 6890,
         num_instances: int = 1,
         seed: int = 0,
+        split: str = "test",
+        n_rays: int = 256,
     ):
         self.H = self.W = image_size
+        self.split = split
+        self.n_rays = n_rays
         self.n_poses = n_poses
         self.num_instances = num_instances
         self.input_view = input_views or list(range(min(3, n_cameras)))
@@ -151,7 +157,7 @@ class SyntheticHumanDataset:
         feature, coord, out_sh, bounds = voxelize_vertices(verts_world)
         t_feature, t_coord, t_out_sh, t_bounds = voxelize_vertices(t_vertices)
 
-        keys = ("img_all ray_o_all ray_d_all near_all far_all "
+        keys = ("img_all ray_o_all ray_d_all rgb_all near_all far_all "
                 "mask_at_box_all bkgd_msk_all msk_all K_all R_all "
                 "T_all").split()
         per_view = {k: [] for k in keys}
@@ -159,20 +165,23 @@ class SyntheticHumanDataset:
             K, R, T = self.cameras[vi]
             img, msk = _splat_image(verts_world, colors, K, R, T, self.H,
                                     self.W)
-            ray_o, ray_d = get_rays(self.H, self.W, K, R, T)
-            o, d, near, far, hit = full_image_rays(ray_o, ray_d, world_bounds)
+            rb: RayBatch = sample_rays_batch(
+                img, msk, K, R, T, world_bounds, self.n_rays, self.split,
+                rng=self.rng,
+            )
             if vi in self.input_view:
                 per_view["img_all"].append(np.transpose(img, (2, 0, 1)))
                 per_view["K_all"].append(K)
                 per_view["R_all"].append(R)
                 per_view["T_all"].append(T)
             per_view["msk_all"].append(msk)
-            per_view["ray_o_all"].append(o)
-            per_view["ray_d_all"].append(d)
-            per_view["near_all"].append(near[..., None])
-            per_view["far_all"].append(far[..., None])
-            per_view["mask_at_box_all"].append(hit)
-            per_view["bkgd_msk_all"].append(np.ones((len(o), 1), np.float32))
+            per_view["rgb_all"].append(rb.rgb)
+            per_view["ray_o_all"].append(rb.ray_o)
+            per_view["ray_d_all"].append(rb.ray_d)
+            per_view["near_all"].append(rb.near[..., None])
+            per_view["far_all"].append(rb.far[..., None])
+            per_view["mask_at_box_all"].append(rb.mask_at_box)
+            per_view["bkgd_msk_all"].append(rb.bkgd_msk)
 
         ret = {
             "pose_index": np.int32(pose_index),

@@ -2,7 +2,7 @@
 ``mpsnerf_tpu/models/mps_nerf.py`` at the flagship configuration:
 transformer fusion, appended rgb, human-region sampling with compaction at
 half the query count, no correction or skinning fields, ``mean_shape``
-off, PE-conditioned MLP, fp32, no occupancy normals).
+off, PE-conditioned MLP, fp32).
 
 Per query point (world space, target pose):
   1. world -> target SMPL space;
@@ -13,6 +13,12 @@ Per query point (world space, target pose):
      the PE'd image rgb;
   6. transformer fusion across views -> f1 (density), f2 (rgb);
   7. NeRF MLP -> (rgb, sigma); masked points get raw = -80.
+
+With ``compute_normals`` (the smooth-loss train step) the occupancy normal
+is the gradient of the tail's density by the canonical points, taken with
+``create_graph`` so the loss can differentiate it again, and the nearest
+SMPL vertex's normal comes with it.  The encoder's BatchNorm follows the
+module's train/eval mode.
 
 Module names follow the reference checkpoint, so ``state_dict()`` is what
 ``mpsnerf_tpu/compat/torch_import.py:convert_reference_state_dict`` reads.
@@ -46,6 +52,7 @@ from mpsnerf_torch.smpl.lbs import (
     deform_target_to_canonical,
     world_to_smpl,
 )
+from mpsnerf_torch.smpl.mesh import vertex_normals
 from mpsnerf_torch.smpl.model import SMPLModel
 
 HUMAN_DIST_THRESHOLD_SQ = 0.05 ** 2  # 5 cm
@@ -55,17 +62,22 @@ NERF_WIDTH, NERF_DEPTH, NERF_SKIPS = 256, 8, (4,)
 
 
 class RawOutput(NamedTuple):
-    """The JAX package's ``RawOutput`` fields that this configuration
-    fills (its correction and normal fields are zero here)."""
+    """The JAX package's ``RawOutput``, in its field order.  The
+    correction fields are zeros in this configuration; the normals are
+    zeros unless ``compute_normals``."""
 
-    rgb: torch.Tensor             # (N, 3) pre-activation (masked: -80)
-    sigma: torch.Tensor           # (N,)   pre-activation (masked: -80)
-    pts_mask: torch.Tensor        # (N,)   1 = inside the human region
-    smpl_query_pts: torch.Tensor  # (N, 3)
-    smpl_src_pts: torch.Tensor    # (N, 3)
-    world_src_pts: torch.Tensor   # (N, 3)
-    bweights: torch.Tensor        # (N, 24)
-    n_dropped: torch.Tensor       # () valid points lost to capacity
+    rgb: torch.Tensor                  # (N, 3) pre-activation (masked: -80)
+    sigma: torch.Tensor                # (N,)   pre-activation (masked: -80)
+    pts_mask: torch.Tensor             # (N,)   1 = inside the human region
+    correction: torch.Tensor           # (N, 3)
+    correction_: torch.Tensor          # (N, 3)
+    smpl_query_pts: torch.Tensor       # (N, 3)
+    smpl_src_pts: torch.Tensor         # (N, 3)
+    occ_normal: torch.Tensor           # (N, 3) d wide_sigmoid(sigma) / d can
+    nearest_smpl_normal: torch.Tensor  # (N, 3)
+    world_src_pts: torch.Tensor        # (N, 3)
+    bweights: torch.Tensor             # (N, 24)
+    n_dropped: torch.Tensor            # () valid points lost to capacity
 
 
 class MPSNeRF(nn.Module):
@@ -143,6 +155,7 @@ class MPSNeRF(nn.Module):
         world_pts: torch.Tensor,   # (N, 3)
         viewdirs: torch.Tensor,    # (N, 3)
         nn_ids: Optional[torch.Tensor] = None,
+        compute_normals: bool = False,
     ) -> RawOutput:
         """Raw (rgb, sigma) and geometry at world points.  Three branches,
         as in the JAX package: caller-supplied nearest-vertex ids (every
@@ -187,14 +200,43 @@ class MPSNeRF(nn.Module):
 
         can_pts = deform_target_to_canonical(
             smpl, tf_t, q_pts, q_ids, mean_shape=False)
+        t_vertices = sp_input["t_vertices"]
 
-        # tail: canonical 1-NN (no gradient), forward LBS, conditioning, MLP
-        _, vert_ids_c = nearest_vertex(
-            can_pts.detach().contiguous(), sp_input["t_vertices"])
-        smpl_src, world_src, bweights = deform_canonical_to_source(
-            smpl, tf_s, can_pts, vert_ids_c, mean_shape=False)
-        f1, f2 = self._view_features(sp_input, latent, world_src)
-        rgb, alpha = self._nerf_mlp(can_pts, f1, f2)
+        def tail(can):
+            # canonical 1-NN (no gradient), forward LBS, conditioning, MLP
+            _, ids_c = nearest_vertex(can.detach().contiguous(), t_vertices)
+            src, world, bw = deform_canonical_to_source(
+                smpl, tf_s, can, ids_c, mean_shape=False)
+            f1, f2 = self._view_features(sp_input, latent, world)
+            rgb_, alpha_ = self._nerf_mlp(can, f1, f2)
+            return alpha_, rgb_, src, world, bw, ids_c
+
+        if compute_normals:
+            with torch.enable_grad():
+                if not can_pts.requires_grad:
+                    can_pts = can_pts.detach().requires_grad_(True)
+                alpha, rgb, smpl_src, world_src, bweights, vert_ids_c = \
+                    tail(can_pts)
+                # occ_normal = d wide_sigmoid(alpha) / d can_pts; the
+                # cotangent stays in the graph (its own derivative is part
+                # of the smooth loss's gradient, as under jax.vjp)
+                s = torch.sigmoid(alpha)
+                cot = (1.0 + 2.0 * 1e-4) * s * (1.0 - s)
+                (occ_normal,) = torch.autograd.grad(
+                    alpha, can_pts, cot, create_graph=True)
+            # no normal where the density gradient vanishes; the double
+            # where keeps sqrt(0) out of the double backward
+            n2 = torch.sum(occ_normal * occ_normal, dim=-1, keepdim=True)
+            valid = (n2 > 1e-8).detach()
+            denom = torch.sqrt(torch.where(valid, n2, torch.ones_like(n2)))
+            occ_normal = torch.where(valid, occ_normal / denom,
+                                     torch.zeros_like(occ_normal))
+            nearest_smpl_normal = vertex_normals(
+                t_vertices, smpl.faces)[vert_ids_c]
+        else:
+            alpha, rgb, smpl_src, world_src, bweights, vert_ids_c = \
+                tail(can_pts)
+            occ_normal = nearest_smpl_normal = None
 
         if cplan is not None:
             # effective mask: valid AND within capacity, AND the branch's
@@ -205,15 +247,25 @@ class MPSNeRF(nn.Module):
             smpl_src = expand_gather(cplan, smpl_src, 0.0)
             world_src = expand_gather(cplan, world_src, 0.0)
             bweights = expand_gather(cplan, bweights, 0.0)
+            if compute_normals:
+                occ_normal = expand_gather(cplan, occ_normal, 0.0)
+                nearest_smpl_normal = expand_gather(
+                    cplan, nearest_smpl_normal, 0.0)
 
         maskf = pts_mask.to(rgb.dtype)[:, None]
+        zeros = rgb.new_zeros(rgb.shape[0], 3)  # no correction field here
         return RawOutput(
             rgb=torch.where(maskf > 0, rgb, torch.full_like(rgb, MASK_FILL)),
             sigma=torch.where(maskf[:, 0] > 0, alpha,
                               torch.full_like(alpha, MASK_FILL)),
             pts_mask=pts_mask,
+            correction=zeros,
+            correction_=zeros,
             smpl_query_pts=smpl_query_pts * maskf,
             smpl_src_pts=smpl_src * maskf,
+            occ_normal=zeros if occ_normal is None else occ_normal * maskf,
+            nearest_smpl_normal=(zeros if nearest_smpl_normal is None
+                                 else nearest_smpl_normal * maskf),
             world_src_pts=world_src,
             bweights=bweights,
             n_dropped=n_dropped,

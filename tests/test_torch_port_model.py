@@ -102,15 +102,17 @@ def test_dilate_and_blur_match_opencv(channels):
 
 def test_scene_builder_matches_jax_item():
     """The port's scene builder gives the JAX item without cv2 or jax:
-    images, geometry and the depth range it bounds at 1e-5 (fp32 posing in
-    another library), cameras, rays and masks exact (the same numpy code)."""
+    images, ray colours, geometry and the depth range it bounds at 1e-5
+    (fp32 posing in another library), cameras, rays and masks exact (the
+    same numpy code)."""
     kw = dict(n_poses=1, n_cameras=4, image_size=64, n_verts=600,
               num_instances=1)
     j = JDataset(split="test", n_rays=64, **kw).get_item(0, instance_idx=0)
     t = TDataset(**kw).get_item(0, instance_idx=0)
-    assert set(t) == set(j) - {"rgb_all"}
-    for k in ("img_all", "msk_all", "vertices", "t_vertices", "feature",
-              "t_feature", "bounds", "t_bounds", "near_all", "far_all"):
+    assert set(t) == set(j)
+    for k in ("img_all", "rgb_all", "msk_all", "vertices", "t_vertices",
+              "feature", "t_feature", "bounds", "t_bounds", "near_all",
+              "far_all"):
         np.testing.assert_allclose(t[k], j[k], atol=1e-5, err_msg=k)
     for k in ("K_all", "R_all", "T_all", "ray_o_all", "ray_d_all",
               "mask_at_box_all", "bkgd_msk_all", "coord", "out_sh",

@@ -1,15 +1,17 @@
 """Parity of the PyTorch port's ops (``mpsnerf_torch.ops``) with the JAX
 package's, on the CPU: the same seeded numpy inputs go through both.
 
-On the CPU the 1-NN wrapper takes the kernel's plain version; the CUDA
-kernel itself is held against that plain version on the card by
-``chip_smoke.py``.
+On the CPU the kernel wrappers (the 1-NN, the packed 1-NN and the patch
+grid-sample's forward, backward and double backward) take their plain
+versions; the CUDA kernels themselves are held against those plain
+versions on the card by ``chip_smoke.py``.
 """
 
 import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from mpsnerf_tpu.ops import grid_sample as j_grid_sample
 from mpsnerf_tpu.ops import knn as j_knn
 from mpsnerf_tpu.ops import positional as j_positional
 from mpsnerf_tpu.smpl import lbs as j_lbs
+from mpsnerf_tpu.smpl import mesh as j_mesh
 from mpsnerf_tpu.smpl.model import synthetic_smpl as j_synthetic_smpl
 
 from mpsnerf_torch.ops import body_grid as t_body_grid
@@ -31,6 +34,7 @@ from mpsnerf_torch.ops import grid_sample as t_grid_sample
 from mpsnerf_torch.ops import knn as t_knn
 from mpsnerf_torch.ops import positional as t_positional
 from mpsnerf_torch.smpl import lbs as t_lbs
+from mpsnerf_torch.smpl import mesh as t_mesh
 from mpsnerf_torch.smpl.model import synthetic_smpl as t_synthetic_smpl
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -77,18 +81,22 @@ def rig():
 
 
 def test_port_imports_without_jax_flax_cv2_or_jax_package():
-    """Every module of the port imports with jax, flax, cv2 and the JAX
+    """Every module of the port (training, the probe tool and the mesh
+    module included) imports with jax, flax, optax, orbax, cv2 and the JAX
     package made unimportable (the card's machine has none of them)."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'cv2', 'mpsnerf_tpu'):\n"
+        "for m in ('jax', 'flax', 'optax', 'orbax', 'cv2', 'mpsnerf_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, pkgutil, mpsnerf_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    mpsnerf_torch.__path__, 'mpsnerf_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 25, names\n"
+        "need = {'mpsnerf_torch.train.trainer', 'mpsnerf_torch.train.losses',\n"
+        "        'mpsnerf_torch.train.checkpoint', 'mpsnerf_torch.smpl.mesh',\n"
+        "        'mpsnerf_torch.tools.knn_variant_probe'}\n"
+        "assert need <= set(names) and len(names) >= 31, names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -336,3 +344,227 @@ def test_rodrigues_and_rigid_transforms():
     np.testing.assert_allclose(np.asarray(ja), ta.numpy(), atol=1e-5)
     np.testing.assert_array_equal(np.asarray(j_kin.big_pose_vector()),
                                   t_kin.big_pose_vector().numpy())
+
+
+# ---- K2: the patch grid-sample, its backward and its double backward ----
+
+def _k2_case(seed, v=2, c=5, h=9, w=11, n=300):
+    """A third of the coords outside [-1, 1] in x or in y, a sixth on pixel
+    positions (the borders included), the rest inside."""
+    rng = np.random.default_rng(seed)
+    img = rng.normal(size=(v, c, h, w)).astype(np.float32)
+    crd = rng.uniform(-1, 1, size=(v, n, 2)).astype(np.float32)
+    k, m = n // 3, n // 6
+    idx = np.arange(k)
+    crd[:, idx, idx % 2] = (np.sign(crd[:, idx, idx % 2])
+                            * rng.uniform(1.01, 1.4, size=(v, k)))
+    crd[:, k:k + m, 0] = rng.integers(0, w, (v, m)) / (w - 1) * 2 - 1
+    crd[:, k:k + m, 1] = rng.integers(0, h, (v, m)) / (h - 1) * 2 - 1
+    crd[:, k, :] = 1.0
+    crd[:, k + 1, :] = -1.0
+    others = [rng.normal(size=sh).astype(np.float32)
+              for sh in ((v, c, n), img.shape, crd.shape)]
+    return (img, crd, *others)
+
+
+def _k2_jax(img, crd, g, gg_i, gg_c, which):
+    if which == "fwd":
+        return [j_grid_sample.grid_sample_2d_patch(img, crd)]
+    if which == "bwd":
+        _, vjp = jax.vjp(j_grid_sample.grid_sample_2d_patch, img, crd)
+        return list(vjp(g))
+
+    def f(img, crd, g):
+        _, vjp = jax.vjp(j_grid_sample.grid_sample_2d_patch, img, crd)
+        d_img, d_crd = vjp(g)
+        return jnp.sum(d_img * gg_i) + jnp.sum(d_crd * gg_c)
+
+    return list(jax.grad(f, argnums=(0, 1, 2))(img, crd, g))
+
+
+def _k2_torch(img, crd, g, gg_i, gg_c, which):
+    ti = torch.tensor(img, requires_grad=True)
+    tc = torch.tensor(crd, requires_grad=True)
+    tg = torch.tensor(g, requires_grad=True)
+    out = t_grid_sample.grid_sample_2d_patch(ti, tc)
+    if which == "fwd":
+        return [out]
+    d_img, d_crd = torch.autograd.grad(out, (ti, tc), tg, create_graph=True)
+    if which == "bwd":
+        return [d_img, d_crd]
+    s = (d_img * torch.tensor(gg_i)).sum() + (d_crd * torch.tensor(gg_c)).sum()
+    return list(torch.autograd.grad(s, (ti, tc, tg)))
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd", "bwd2"])
+def test_grid_sample_patch_matches_jax(which):
+    """K2's forward (the patch form), backward (the 4-corner VJP, the JAX
+    custom_vjp's) and double backward (JAX's autodiff of that VJP) on the
+    plain path, with coords inside, outside and on pixel positions:
+    atol 1e-5 of each output's max |value| (at least 1): the coordinate
+    outputs carry (W-1)/2 and (H-1)/2 factors and sum over channels in
+    another order."""
+    case = _k2_case(0)
+    j = _k2_jax(*map(jnp.asarray, case), which)
+    t = _k2_torch(*case, which)
+    assert len(j) == len(t) == {"fwd": 1, "bwd": 2, "bwd2": 3}[which]
+    for a, b in zip(j, t):
+        a = np.asarray(a)
+        assert a.shape == tuple(b.shape)
+        np.testing.assert_allclose(a, b.detach().numpy(), rtol=0,
+                                   atol=1e-5 * max(1.0, np.abs(a).max()))
+
+
+def test_grid_sample_patch_coordinate_gradient_at_the_border():
+    """Beyond the border in one axis the coordinate gradient equals JAX's
+    and is not zero (its component along the border); on the far border
+    (x = W-1) it equals JAX's zero along x, where autograd through the
+    patch form's clamped weight gives the backward difference instead."""
+    rng = np.random.default_rng(1)
+    img = rng.normal(size=(1, 4, 5, 6)).astype(np.float32)
+    crd = np.array([[[1.3, 0.1], [-1.2, 0.33], [0.2, 1.25], [1.0, 0.1],
+                     [-1.0, 0.1]]], np.float32)
+    g = np.ones((1, 4, 5), np.float32)
+    _, vjp = jax.vjp(j_grid_sample.grid_sample_2d_patch, jnp.asarray(img),
+                     jnp.asarray(crd))
+    want = np.asarray(vjp(jnp.asarray(g))[1])[0]
+    tc = torch.tensor(crd, requires_grad=True)
+    t_grid_sample.grid_sample_2d_patch(torch.tensor(img), tc).sum().backward()
+    got = tc.grad.numpy()[0]
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    assert (np.abs(got[:3]).sum(-1) > 1e-3).all()  # beyond the border
+    assert got[3, 0] == 0.0
+    tp = torch.tensor(crd, requires_grad=True)
+    t_grid_sample.grid_sample_2d_patch_plain(torch.tensor(img), tp).sum() \
+        .backward()
+    assert abs(tp.grad.numpy()[0, 3, 0]) > 1e-3
+
+
+def test_grid_sample_patch_gradcheck_and_gradgradcheck():
+    """float64 finite differences on the plain path: the backward inside
+    the image (where the patch and 4-corner forms have one derivative),
+    and the double backward everywhere away from integer positions."""
+    rng = np.random.default_rng(2)
+    img = torch.tensor(rng.normal(size=(2, 3, 6, 7)), requires_grad=True)
+    inside = torch.tensor(rng.uniform(-0.9, 0.9, (2, 20, 2)),
+                          requires_grad=True)
+    wide = torch.tensor(rng.uniform(-1.3, 1.3, (2, 20, 2)),
+                        requires_grad=True)
+    f = t_grid_sample.grid_sample_2d_patch
+    assert torch.autograd.gradcheck(f, (img, inside))
+    assert torch.autograd.gradgradcheck(f, (img, wide))
+
+
+def test_grid_sample_patch_skips_the_image_scatter(monkeypatch):
+    """An image that carries no gradient (the RGB inputs) gets no scatter:
+    the backward is asked for the coordinate gradient only."""
+    seen = []
+    plain = t_grid_sample.grid_sample_patch_backward_plain
+
+    def spy(g, image, coords, need_image):
+        seen.append(need_image)
+        return plain(g, image, coords, need_image)
+
+    monkeypatch.setattr(t_grid_sample, "grid_sample_patch_backward_plain", spy)
+    img, crd, *_ = _k2_case(3)
+    tc = torch.tensor(crd, requires_grad=True)
+    t_grid_sample.grid_sample_2d_patch(torch.tensor(img), tc).sum().backward()
+    ti = torch.tensor(img, requires_grad=True)
+    t_grid_sample.grid_sample_2d_patch(ti, torch.tensor(crd)).sum().backward()
+    assert seen == [False, True] and ti.grad is not None
+
+
+def test_grid_sample_4_corner_form_matches_jax():
+    """``grid_sample_2d`` (the 4-corner form the backward is built on) at
+    atol 1e-6."""
+    img, crd, *_ = _k2_case(4)
+    np.testing.assert_allclose(
+        np.asarray(j_grid_sample.grid_sample_2d(jnp.asarray(img),
+                                                jnp.asarray(crd))),
+        t_grid_sample.grid_sample_2d(_t(img), _t(crd)).numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd", "bwd2"])
+def test_grid_sample_cuda_wrappers_reject_cpu_tensors(which):
+    """A kernel wrapper never falls back: CPU tensors raise there, and the
+    dispatching function's CPU path counts no launch."""
+    img, crd, g, gg_i, gg_c = map(_t, _k2_case(5))
+    with pytest.raises(ValueError):
+        if which == "fwd":
+            t_grid_sample.grid_sample_patch_fwd_cuda(img, crd)
+        elif which == "bwd":
+            t_grid_sample.grid_sample_patch_bwd_cuda(g, img, crd, True)
+        else:
+            t_grid_sample.grid_sample_patch_bwd2_cuda(
+                g, img, crd, gg_i, gg_c, (True, True, True))
+    _k2_torch(*_k2_case(5), "bwd2")
+    assert all(n == 0 for n in t_grid_sample.LAUNCHES.values())
+
+
+# ---- the packed-key 1-NN (the probe's kernel_vT / _nn_kernel function) ----
+
+@pytest.mark.parametrize("nq,nv,seed", [(3000, 700, 0), (2048, 1500, 1)])
+def test_packed_plain_matches_pallas_interpret(nq, nv, seed):
+    """The packed plain version against the TPU kernel in interpret mode:
+    >= 99.9 % of ids equal, and every other id in the same 13-bit
+    truncation class of d^2 (the two d^2 within 2^-10 relative); the
+    returned d^2 is the exact diff form at the id."""
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(-1.2, 1.2, size=(nq, 3)).astype(np.float32)
+    v = rng.uniform(-1.0, 1.0, size=(nv, 3)).astype(np.float32)
+    d2_t, ids_t = t_knn.nearest_vertex_packed(_t(q), _t(v))
+    _, ids_p = j_knn.nearest_vertex_pallas(jnp.asarray(q), jnp.asarray(v),
+                                           interpret=True)
+    ids_t, ids_p = ids_t.numpy(), np.asarray(ids_p)
+    assert (ids_t == ids_p).mean() >= 0.999
+    da = ((q - v[ids_t]) ** 2).sum(-1)
+    db = ((q - v[ids_p]) ** 2).sum(-1)
+    assert (np.abs(da - db) <= 2.0 ** -10 * np.maximum(da, db)).all()
+    diff = _t(q) - _t(v)[torch.from_numpy(ids_t)]
+    assert torch.equal(d2_t, t_knn._d2(diff))
+
+
+def test_packed_plain_key_semantics():
+    """One integer min over (bits(d^2) & ~0x1FFF) | id: d^2 within one
+    truncation class tie, and the lowest id wins among them, where the
+    exact 1-NN takes the nearer vertex."""
+    v = torch.tensor([[1.0001, 0, 0], [0, 2.0, 0], [1.0, 0, 0], [0, 0, 3.0]])
+    q = torch.tensor([[0.0, 0, 0], [0, 0, 2.9]])
+    d2, ids = t_knn.nearest_vertex_packed_plain(q, v)
+    assert ids.tolist() == [0, 3]  # 1.0002 and 1.0 share a class
+    assert d2[0] == t_knn._d2(q[:1] - v[:1])[0]
+    _, exact = t_knn.nearest_vertex_plain(q, v)
+    assert exact.tolist() == [2, 3]
+    _, ids_far = t_knn.nearest_vertex_packed_plain(q, v * 1.01)
+    assert ids_far.tolist() == [0, 3]
+
+
+def test_packed_raises_where_jax_raises():
+    """Padded to the 1152-vertex tile the count must fit 13 bits: 8064
+    vertices pass, 8065 raise, in both packages."""
+    q = np.zeros((4, 3), np.float32)
+    ok = np.random.default_rng(0).normal(size=(8064, 3)).astype(np.float32)
+    too_many = np.concatenate([ok, ok[:1]])
+    assert t_knn.nearest_vertex_packed(_t(q), _t(ok))[1].shape == (4,)
+    for f in (lambda: t_knn.nearest_vertex_packed(_t(q), _t(too_many)),
+              lambda: j_knn.nearest_vertex_pallas(
+                  jnp.asarray(q), jnp.asarray(too_many), interpret=True)):
+        with pytest.raises(ValueError):
+            f()
+    with pytest.raises(ValueError):
+        t_knn.nearest_vertex_packed_cuda(_t(q), _t(ok))
+    assert t_knn.LAUNCHES["nearest_vertex_packed"] == 0
+
+
+def test_vertex_normals(rig):
+    """Vertex normals of the posed rig at atol 1e-6 (cross products and
+    normalisations in fp32, summed by index_add_ in another order)."""
+    j_smpl, t_smpl, params = rig
+    verts = np.asarray(j_lbs.posed_vertices(
+        j_smpl, {k: jnp.asarray(v) for k, v in params.items()}))
+    j = np.asarray(j_mesh.vertex_normals(jnp.asarray(verts), j_smpl.faces))
+    t = t_mesh.vertex_normals(_t(verts), t_smpl.faces).numpy()
+    np.testing.assert_allclose(j, t, atol=1e-6)
+    norms = np.linalg.norm(t, axis=-1)  # 0: a vertex in no face
+    assert (np.abs(norms - 1.0) < 1e-5).mean() > 0.8
+    assert ((np.abs(norms - 1.0) < 1e-5) | (norms == 0)).all()
