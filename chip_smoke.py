@@ -11,9 +11,14 @@ non-zero):
      1-NN (K1) at 131,072 x 6890 and at the fine pre-pass shape of the
      full-width view (d2 to 1e-6, >= 99.9 % equal ids, every other id a
      tie in exact d2); the packed-key 1-NN at 131,072 x 6890 (ids 100 %
-     equal); the patch grid-sample K2 forward (1e-6), backward and double
-     backward (each output to 1e-5 of its max |value|) at the training
-     shapes, latent 3x128x128x128 and RGB 3x3x512x512 at 64,512 points;
+     equal); the patch grid-sample K2 forward (1e-6), backward (at each
+     pair of need_image/need_coords) and double backward (each output to
+     1e-5 of its max |value|) at the training shapes, latent
+     3x128x128x128 (channels-last as the encoder gives it, with g in both
+     layouts, and (V, C, H, W)-contiguous, whose per-call copy is counted)
+     and RGB 3x3x512x512 at 64,512 points; once phase 5 has captured them,
+     the backward and double backward again on a plain and a smooth
+     step's real latent inputs (and the flags those steps asked for);
   3. CUDA against CPU at 64^2 (full 6890-vertex rig, seeded weights, TF32
      off): the serving render (pixels 1e-4, counts exact), and one plain
      and one smooth training loss (perturb 0, the same injected smooth
@@ -23,17 +28,23 @@ non-zero):
      with seeded weights, 128 samples per ray, ``ViewRenderer.render_view``
      for 3 requests after one warm-up view; each request must drop
      nothing, give finite pixels, accumulate opacity > 0.5 on > 1 % of the
-     pixels and launch K1 at least twice and K2 forward;
+     pixels and launch K1 at least twice and K2 forward; the encoded
+     latent must be channels-last and K2 must copy no layout;
   5. training at full width: ``Trainer.train_item`` on two items of the
      synthetic train split (3 input views at 512^2, 4 output views, 1000
      rays per view-step, 128 samples, perturb 1), 8 view-steps of which 2
      smooth; every step must drop nothing, give finite loss terms and
-     change the parameters; then ms per plain and per smooth step by CUDA
-     events, peak memory, launches per step and a profiler breakdown;
+     change the parameters, and K2 must copy no layout; then ms per plain
+     and per smooth step by CUDA events, peak memory, launches per step
+     and a profiler breakdown with K2's share of the busy time;
   6. the 1-NN variant probe (``mpsnerf_torch.tools.knn_variant_probe``) at
      2,572,288 x 6890;
   7. one ``{"kernels": [...]}`` line: each kernel's launches on its path
-     and its times against its bound;
+     and its times against its bound, the plain version and a library
+     call; for K2 also the RGB, the other image layout, and the backward
+     on each captured set (``captured``: plain step, smooth step inner,
+     smooth step) beside the yardstick of autograd through
+     ``F.grid_sample`` (not the same function at the border);
   8. the device line, last.
 
 Launch counts are set to 0 just before each path (phases 4, 5, 6) and
@@ -93,6 +104,37 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps):
+    """Device time per call of every kernel ``fn`` launches, from
+    torch.profiler (the call time of ``cuda_ms`` also holds the host's
+    enqueue time when that is the longer)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in device_rows(prof)) \
+        / 1e3 / reps
+
+
+def host_us(fn, reps):
+    """Host time per call to enqueue ``fn`` (no synchronisation inside)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
 def _counters():
     from mpsnerf_torch.ops import grid_sample, knn
 
@@ -100,9 +142,18 @@ def _counters():
 
 
 def reset_counts():
-    for counter in _counters():
+    from mpsnerf_torch.ops import grid_sample
+
+    for counter in _counters() + (grid_sample.LAYOUT_COPIES,):
         for k in counter:
             counter[k] = 0
+
+
+def layout_copies():
+    """Channels-last copies K2's wrappers made since the last reset."""
+    from mpsnerf_torch.ops import grid_sample
+
+    return grid_sample.LAYOUT_COPIES["grid_sample_patch"]
 
 
 def read_counts():
@@ -114,7 +165,8 @@ def read_counts():
 
 class uncounted:
     """Launches inside the block (comparisons, timings) leave the counts
-    as they were."""
+    as they were.  (Layout copies are counted on: phase 2 reads them; each
+    path resets them before it runs.)"""
 
     def __enter__(self):
         self.saved = [dict(c) for c in _counters()]
@@ -206,49 +258,180 @@ def k2_inputs(shape, n, seed, dev):
     return [t.to(dev) for t in tensors]
 
 
+def channels_last(x):
+    """The same values with the channels innermost in memory (the
+    encoder's latent; for g, the layout the train step's g arrives in)."""
+    import torch
+
+    if x.dim() == 4:
+        return x.contiguous(memory_format=torch.channels_last)
+    return x.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def rel_errors(kernel_outs, plain_outs, labels, exact=None):
+    """Max |kernel - plain| / max |plain| per output, to 1e-5 (None
+    outputs must agree); returns (ok, worst abs error, text).  A scatter
+    whose terms cancel can leave two fp32 sums in different orders further
+    apart than that: where ``exact`` gives an output's float64 sum, the
+    kernel passes beyond 1e-5 only if it is no farther from that sum than
+    the plain version is."""
+    ok, worst, parts = True, 0.0, []
+    for i, (label, a, b) in enumerate(zip(labels, kernel_outs, plain_outs)):
+        if a is None or b is None:
+            ok &= a is None and b is None
+            parts.append(f"{label} none {a is None and b is None}")
+            continue
+        rel = _rel(a, b)
+        text = f"{label} {rel:.2g}"
+        good = rel <= 1e-5
+        ref = exact(i) if exact is not None and not good else None
+        if ref is not None:
+            rk, rp = _rel(a.double(), ref), _rel(b.double(), ref)
+            good = rk <= rp
+            text += f" (to the float64 sum: kernel {rk:.2g}, plain {rp:.2g})"
+        ok &= good
+        worst = max(worst, float((a - b).abs().max()))
+        parts.append(text)
+    return ok, worst, ", ".join(parts)
+
+
+def scatter_f64(g, image, coords):
+    """The backward's image gradient summed in float64 from the float32
+    corners and weights: the exact sum both fp32 versions round."""
+    from mpsnerf_torch.ops import grid_sample as gs
+
+    k = gs._Corners(coords, image.shape[2], image.shape[3])
+    gd = g.double()
+    return gs._scatter(image.shape, k.lin,
+                       [gd * wt.double()[:, None, :] for wt in k.w])
+
+
+BWD_FLAGS = ((True, True), (True, False), (False, True))
+
+
+def compare_k2_bwd(tag, g, image, coords, flags=BWD_FLAGS):
+    """The backward kernel against its plain version at each (need_image,
+    need_coords); returns (ok, worst abs error, text)."""
+    import torch
+
+    from mpsnerf_torch.ops import grid_sample as gs
+
+    ok, worst, texts = True, 0.0, []
+    for need in flags:
+        with uncounted():
+            k = gs.grid_sample_patch_bwd_cuda(g, image, coords, *need)
+            torch.cuda.synchronize()
+        p = gs.grid_sample_patch_backward_plain(g, image, coords, *need)
+        o, w, t = rel_errors(
+            k, p, ("d_image", "d_coords"),
+            exact=lambda i: scatter_f64(g, image, coords) if i == 0 else None)
+        ok, worst = ok and o, max(worst, w)
+        texts.append(f"need {int(need[0])}{int(need[1])}: {t}")
+    return ok, worst, f"{tag} bwd " + "; ".join(texts)
+
+
 def compare_k2(name, shape, dev):
-    """K2's three kernels against their plain versions; returns the max
-    abs error of each."""
+    """K2's three kernels against their plain versions at the training
+    shape, on the image as the main path lays it out (the latent
+    channels-last, the RGB as (V, 3, H, W)) and, for the latent, on a
+    (V, C, H, W)-contiguous copy too (the wrappers copy that one, and
+    count the copy); g in both layouts.  Returns the max abs error of
+    each kernel."""
     import torch
 
     from mpsnerf_torch.ops import grid_sample as gs
 
     image, coords, g, gg_i, gg_c = k2_inputs(shape, TRAIN_POINTS, 1, dev)
+    cases = [("nchw", image, g)]
+    if name == "latent":
+        cases = [("channels-last", channels_last(image), channels_last(g)),
+                 ("channels-last, g (V,C,N)", channels_last(image), g)] \
+            + cases
     need = (True, True, True)
+    err = dict.fromkeys(("grid_sample_patch_fwd", "grid_sample_patch_bwd",
+                         "grid_sample_patch_bwd2"), 0.0)
+    ok_all = True
+    for label, img, gv in cases:
+        copies0 = gs.LAYOUT_COPIES["grid_sample_patch"]
+        with uncounted():
+            fk = gs.grid_sample_patch_fwd_cuda(img, coords)
+            b2k = gs.grid_sample_patch_bwd2_cuda(gv, img, coords, gg_i, gg_c,
+                                                 need)
+            torch.cuda.synchronize()
+        fp = gs.grid_sample_2d_patch_plain(img, coords)
+        b2p = gs.grid_sample_patch_double_backward_plain(
+            gv, img, coords, gg_i, gg_c, need)
+        f_err = float((fk - fp).abs().max())
+        ok = f_err <= 1e-6 and fk.shape == fp.shape
+        b_ok, b_err, b_text = compare_k2_bwd(label, gv, img, coords)
+        b2_ok, b2_err, b2_text = rel_errors(b2k, b2p, ("d_g", "d_image",
+                                                       "d_coords"))
+        ok &= b_ok and b2_ok
+        # beyond the border in one axis the coordinate gradient still has
+        # its component along the border
+        with uncounted():
+            dc = gs.grid_sample_patch_bwd_cuda(gv, img, coords, False,
+                                               True)[1]
+        outside = bool((dc[:, :TRAIN_POINTS // 10].abs().sum(-1) > 0)
+                       .float().mean() > 0.5)
+        copies = gs.LAYOUT_COPIES["grid_sample_patch"] - copies0
+        wide_spread = img.shape[1] % 4 == 0 and img.stride(1) != 1
+        ok &= outside and copies == (4 if wide_spread else 0)
+        ok_all &= ok
+        for kname, e in (("grid_sample_patch_fwd", f_err),
+                         ("grid_sample_patch_bwd", b_err),
+                         ("grid_sample_patch_bwd2", b2_err)):
+            err[kname] = max(err[kname], e)
+        log(f"[2] K2 {name} {tuple(shape)} ({label}) at {TRAIN_POINTS} "
+            f"points: fwd max|diff| {f_err:.3g}; relative to max: {b_text}; "
+            f"bwd2 {b2_text}; coordinate gradient beyond the border nonzero "
+            f"{outside}; layout copies {copies}: {'ok' if ok else 'FAIL'}")
+    if not ok_all:
+        raise SystemExit(1)
+    return err
+
+
+def compare_captured(captured):
+    """Phase 2 on the inputs phase 5 captured (real coordinates): each
+    backward set with the flags its step used and with both outputs, and
+    the double backward; returns the worst abs error of each kernel."""
+    import torch
+
+    from mpsnerf_torch.ops import grid_sample as gs
+
+    err = {"grid_sample_patch_bwd": 0.0, "grid_sample_patch_bwd2": 0.0}
+    # the steps asked for exactly these: the plain step no coordinate
+    # gradient, the smooth step's inner normal gradients no image scatter
+    ok_all = set(captured["bwd"]) == {"plain step", "smooth step inner",
+                                      "smooth step"}
+    log(f"[2] K2 backward calls of a plain and a smooth step on the latent: "
+        + ", ".join(f"{k} need {tuple(map(int, need))}"
+                    for k, (_, need) in captured["bwd"].items())
+        + f": {'ok' if ok_all else 'FAIL'}")
+    for label, (args, need) in captured["bwd"].items():
+        flags = (need,) if need == (True, True) else (need, (True, True))
+        ok, worst, text = compare_k2_bwd(label, *args, flags=flags)
+        err["grid_sample_patch_bwd"] = max(err["grid_sample_patch_bwd"],
+                                           worst)
+        ok_all &= ok
+        log(f"[2] K2 on captured inputs {tuple(args[1].shape)} x "
+            f"{args[2].shape[1]}, {text}: {'ok' if ok else 'FAIL'}")
+    args = captured["bwd2"]
     with uncounted():
-        fk = gs.grid_sample_patch_fwd_cuda(image, coords)
-        bk = gs.grid_sample_patch_bwd_cuda(g, image, coords, True)
-        b2k = gs.grid_sample_patch_bwd2_cuda(g, image, coords, gg_i, gg_c,
-                                             need)
+        k = gs.grid_sample_patch_bwd2_cuda(*args)
         torch.cuda.synchronize()
-    fp = gs.grid_sample_2d_patch_plain(image, coords)
-    bp = gs.grid_sample_patch_backward_plain(g, image, coords, True)
-    b2p = gs.grid_sample_patch_double_backward_plain(
-        g, image, coords, gg_i, gg_c, need)
-    err = {"grid_sample_patch_fwd": float((fk - fp).abs().max())}
-    rels, ok = [], err["grid_sample_patch_fwd"] <= 1e-6
-    for kname, ks, ps, labels in (
-            ("grid_sample_patch_bwd", bk, bp, ("d_image", "d_coords")),
-            ("grid_sample_patch_bwd2", b2k, b2p,
-             ("d_g", "d_image", "d_coords"))):
-        worst = 0.0
-        for label, a, b in zip(labels, ks, ps):
-            abs_err = float((a - b).abs().max())
-            rel = abs_err / max(float(b.abs().max()), 1e-30)
-            rels.append(f"{kname[18:]} {label} {rel:.2g}")
-            ok &= rel <= 1e-5
-            worst = max(worst, abs_err)
-        err[kname] = worst
-    # beyond the border in one axis the coordinate gradient still has its
-    # component along the border
-    outside = bool((bk[1][:, :TRAIN_POINTS // 10].abs().sum(-1) > 0)
-                   .float().mean() > 0.5)
-    ok &= outside
-    log(f"[2] K2 {name} {tuple(shape)} at {TRAIN_POINTS} points: fwd "
-        f"max|diff| {err['grid_sample_patch_fwd']:.3g}; relative to max: "
-        f"{', '.join(rels)}; coordinate gradient beyond the border "
-        f"nonzero {outside}: {'ok' if ok else 'FAIL'}")
-    if not ok:
+    ok, worst, text = rel_errors(
+        k, gs.grid_sample_patch_double_backward_plain(*args),
+        ("d_g", "d_image", "d_coords"))
+    err["grid_sample_patch_bwd2"] = worst
+    ok_all &= ok
+    log(f"[2] K2 on captured inputs, smooth step bwd2: {text}: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok_all:
         raise SystemExit(1)
     return err
 
@@ -306,8 +489,12 @@ def log_profile(tag, what, rows, wall_ms, unprofiled_ms, watch):
     shown = rows[:10] + [e for e in rows[10:]
                          if any(w in e.key for w in watch)]
     for e in shown:
-        log(f"[{tag}]   {e.self_device_time_total / 1e3:8.1f} ms "
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"{e.count:6d} x  {e.key[:100]}")
+    k2_ms = sum(e.self_device_time_total for e in rows
+                if "grid_sample" in e.key) / 1e3
+    log(f"[{tag}] K2 kernels in {what}: {k2_ms:.3f} ms, "
+        f"{100 * k2_ms / busy_ms:.1f} % of the busy time")
 
 
 def breakdown(renderer, smpl, item, k, unprofiled_ms):
@@ -328,6 +515,9 @@ def breakdown(renderer, smpl, item, k, unprofiled_ms):
     rays = view_rays(item, k, dev)[0]
     sp = tp = renderer._device_side(item)
     latent = renderer._latent_for(item, sp)
+    if not latent.is_contiguous(memory_format=torch.channels_last):
+        fail(f"[4] the encoded latent {tuple(latent.shape)} is not "
+             f"channels-last (strides {latent.stride()}): FAIL")
     n, tile, ns = rays[0].shape[0], renderer.tile, renderer.n_samples
     stages = {}
 
@@ -424,7 +614,7 @@ def compare_training(dev):
 
 def train_full_width(dev):
     """Phase 5; returns the launches on the main path, the timed steps'
-    records and the captured K2 inputs of a smooth step."""
+    records and the captured K2 inputs of a plain and a smooth step."""
     import math
 
     import torch
@@ -466,6 +656,7 @@ def train_full_width(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    copies = layout_copies()
     h1.remove()
     h2.remove()
     n_smooth = sum(1 for terms, _ in logs if float(terms.smpl_normal) > 0)
@@ -481,11 +672,11 @@ def train_full_width(dev):
             f"{float(terms.smpl_normal):.4g}), psnr {float(psnr):.2f}, "
             f"n_dropped {float(terms.n_dropped):g}, parameter tensors "
             f"changed {100 * changed[s]:.0f} %: {'ok' if good else 'FAIL'}")
-    main_ok = ok and all(launches[k] > 0 for k in KERNEL_NAMES
-                         if k != "nearest_vertex_packed")
+    main_ok = ok and copies == 0 and all(
+        launches[k] > 0 for k in KERNEL_NAMES if k != "nearest_vertex_packed")
     log(f"[5] 8 view-steps ({n_smooth} smooth) in {wall:.2f} s wall (first "
-        f"steps included); launches {json.dumps(launches)}: "
-        f"{'ok' if main_ok else 'FAIL'}")
+        f"steps included); launches {json.dumps(launches)}; K2 layout "
+        f"copies {copies}: {'ok' if main_ok else 'FAIL'}")
     if not main_ok:
         raise SystemExit(1)
 
@@ -536,108 +727,234 @@ def train_full_width(dev):
 
 
 def capture_k2_inputs(trainer, smpl, item):
-    """The latent's K2 backward and double backward inputs as one smooth
-    step gives them (real points project onto clustered pixels, unlike the
-    uniform coords of phase 2), copied for phase 7's timings."""
+    """The latent's K2 backward inputs as one plain and one smooth step
+    give them (real points project onto clustered pixels, unlike the
+    uniform coords of phase 2), one set per (need_image, need_coords) the
+    steps asked for: the plain step's (1, 0), the smooth step's inner
+    normal gradients (0, 1) and its outer backward (1, 1); and the smooth
+    step's double backward inputs.  Copied for phase 2's comparison and
+    phase 7's timings."""
+    import torch
+
     from mpsnerf_torch.ops import grid_sample as gs
 
-    captured = {}
+    names = {(True, False): "plain step", (False, True): "smooth step inner",
+             (True, True): "smooth step"}
+    bwd, bwd2 = {}, []
     wrapped = {"grid_sample_patch_bwd_cuda": gs.grid_sample_patch_bwd_cuda,
                "grid_sample_patch_bwd2_cuda": gs.grid_sample_patch_bwd2_cuda}
 
-    def spy(name):
-        def call(g, image, coords, *rest):
-            if image.shape[1] > 3 and name not in captured:
-                captured[name] = [t.detach().clone() if hasattr(t, "detach")
-                                  else t for t in (g, image, coords, *rest)]
-            return wrapped[name](g, image, coords, *rest)
-        return call
+    def keep(tensors):
+        # copies with the same strides: the layouts are part of the inputs
+        return [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                    device=t.device).copy_(t)
+                if isinstance(t, torch.Tensor) else t for t in tensors]
 
-    trainer.step += (-trainer.step) % 4  # a smooth step
+    def spy_bwd(g, image, coords, need_image, need_coords):
+        need = (need_image, need_coords)
+        if image.shape[1] > 3 and names[need] not in bwd:
+            bwd[names[need]] = (keep((g, image, coords)), need)
+        return wrapped["grid_sample_patch_bwd_cuda"](g, image, coords, *need)
+
+    def spy_bwd2(g, image, coords, *rest):
+        if image.shape[1] > 3 and not bwd2:
+            bwd2.extend(keep((g, image, coords, *rest)))
+        return wrapped["grid_sample_patch_bwd2_cuda"](g, image, coords, *rest)
+
     try:
-        for name in wrapped:
-            setattr(gs, name, spy(name))
+        gs.grid_sample_patch_bwd_cuda = spy_bwd
+        gs.grid_sample_patch_bwd2_cuda = spy_bwd2
         with uncounted():
-            trainer.view_step(smpl, item, item, trainer.step % 4)
+            for smooth in (False, True):
+                trainer.step += (-trainer.step) % 4 if smooth else \
+                    (1 if trainer.step % 4 == 0 else 0)
+                trainer.view_step(smpl, item, item, trainer.step % 4)
     finally:
         for name, fn in wrapped.items():
             setattr(gs, name, fn)
-    return captured
+    return {"bwd": bwd, "bwd2": bwd2}
+
+
+def _bwd_work(v, c, h, w, n, need):
+    """Bytes (each input read once, each output written once) and
+    operations of one backward with the flags ``need``."""
+    need_image, need_coords = need
+    img_b, pts_b, vcn = 4 * v * h * w * c, 4 * v * n * 2, 4 * v * c * n
+    nbytes = vcn + pts_b + (img_b if need_image else 0) \
+        + ((img_b + pts_b) if need_coords else 0)
+    ops = v * c * n * ((8 if need_image else 0) + (20 if need_coords else 0))
+    return nbytes, ops
+
+
+def _bound(nbytes, ops):
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    ops_ms = ops / FLOPS_FP32 * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def _library_bwd(g, image, coords, need):
+    """The yardstick: autograd of F.grid_sample(padding_mode="border",
+    align_corners=True) on the same inputs and flags.  Not the same
+    function at the border (its derivative there is the clamped
+    position's, not the 4-corner form's)."""
+    import torch
+    import torch.nn.functional as F
+
+    img = image.detach().requires_grad_(need[0])
+    grid = coords.detach()[:, :, None, :].requires_grad_(need[1])
+    out = F.grid_sample(img, grid, mode="bilinear", padding_mode="border",
+                        align_corners=True)
+    wrt = [t for t, want in zip((img, grid), need) if want]
+    gl = g[..., None]
+    return lambda: torch.autograd.grad(out, wrt, gl, retain_graph=True)
+
+
+LIBRARY_BWD_NOTE = ("autograd of F.grid_sample(padding_mode='border', "
+                    "align_corners=True) with the same flags: a yardstick, "
+                    "not the same function at the border")
 
 
 def k2_times(dev, errs, captured):
-    """K2's kernels at the training latent shape (and the RGB's, as extra
-    fields): kernel, plain, library and bound; and the latent's backward
-    and double backward on the inputs a smooth train step gave them."""
+    """K2's kernels at the training shapes: kernel, plain, library and
+    bound.  Forward on the latent as the path lays it (channels-last) and
+    on a (V, C, H, W)-contiguous copy (the wrapper then copies per call),
+    and on the RGB as it lies and on one channels-last copy.  Backward on
+    uniform coords and on each captured set with the flags its step used
+    (and with both outputs); double backward on uniform and on the smooth
+    step's inputs."""
     import torch
     import torch.nn.functional as F
 
     from mpsnerf_torch.ops import grid_sample as gs
 
-    need = (True, True, True)
     out = {}
     for which, shape in TRAIN_SHAPES.items():
         image, coords, g, gg_i, gg_c = k2_inputs(shape, TRAIN_POINTS, 2, dev)
         v, c, h, w = shape
         n = TRAIN_POINTS
+        if which == "latent":
+            image = channels_last(image)
+        other = image.contiguous() if which == "latent" else \
+            channels_last(image)
         img_b, pts_b, vcn = 4 * v * h * w * c, 4 * v * n * 2, 4 * v * c * n
         with uncounted():
-            times = {
-                "grid_sample_patch_fwd": (
-                    cuda_ms(lambda: gs.grid_sample_patch_fwd_cuda(
-                        image, coords), 20),
-                    cuda_ms(lambda: gs.grid_sample_2d_patch_plain(
-                        image, coords), 5),
-                    cuda_ms(lambda: F.grid_sample(
-                        image, coords[:, :, None, :], mode="bilinear",
-                        padding_mode="border", align_corners=True), 20),
-                    img_b + pts_b + vcn, v * c * n * 7 + v * n * 12),
-                "grid_sample_patch_bwd": (
-                    cuda_ms(lambda: gs.grid_sample_patch_bwd_cuda(
-                        g, image, coords, True), 10),
-                    cuda_ms(lambda: gs.grid_sample_patch_backward_plain(
-                        g, image, coords, True), 3),
-                    None, vcn + 2 * img_b + 2 * pts_b, v * c * n * 28),
-                "grid_sample_patch_bwd2": (
-                    cuda_ms(lambda: gs.grid_sample_patch_bwd2_cuda(
-                        g, image, coords, gg_i, gg_c, need), 10),
-                    cuda_ms(lambda: gs.grid_sample_patch_double_backward_plain(
-                        g, image, coords, gg_i, gg_c, need), 3),
-                    None, 2 * vcn + 3 * img_b + 3 * pts_b, v * c * n * 60),
+            def kernel():
+                return gs.grid_sample_patch_fwd_cuda(image, coords)
+
+            def library():
+                return F.grid_sample(image, coords[:, :, None, :],
+                                     mode="bilinear", padding_mode="border",
+                                     align_corners=True)
+
+            fwd = {
+                "ms": cuda_ms(kernel, 50),
+                "other_ms": cuda_ms(lambda: gs.grid_sample_patch_fwd_cuda(
+                    other, coords), 50),
+                "plain_ms": cuda_ms(lambda: gs.grid_sample_2d_patch_plain(
+                    image, coords), 5),
+                "library_ms": cuda_ms(library, 50),
+                "device_ms": device_ms(kernel, 20),
+                "library_device_ms": device_ms(library, 20),
+                "host_us": host_us(kernel, 200),
+                "library_host_us": host_us(library, 200),
             }
-        for name, (ms, plain_ms, lib_ms, nbytes, ops) in times.items():
-            bytes_ms = nbytes / HBM_BYTES_S * 1e3
-            ops_ms = ops / FLOPS_FP32 * 1e3
-            rec = out.setdefault(name, {})
+            fwd["bound_ms"], fwd["bound_by"] = _bound(
+                img_b + pts_b + vcn, v * c * n * 7 + v * n * 12)
+            need = (True, True)
+            bwd = {
+                "ms": cuda_ms(lambda: gs.grid_sample_patch_bwd_cuda(
+                    g, image, coords, *need), 10),
+                "device_ms": device_ms(lambda: gs.grid_sample_patch_bwd_cuda(
+                    g, image, coords, *need), 10),
+                "plain_ms": cuda_ms(lambda: gs.grid_sample_patch_backward_plain(
+                    g, image, coords, *need), 3),
+                "library_ms": cuda_ms(_library_bwd(g, image, coords, need),
+                                      10),
+            }
+            bwd["bound_ms"], bwd["bound_by"] = _bound(
+                *_bwd_work(v, c, h, w, n, need))
+            if which == "rgb":  # the smooth step's RGB call: coords only
+                bwd["coords_only_ms"] = cuda_ms(
+                    lambda: gs.grid_sample_patch_bwd_cuda(
+                        g, image, coords, False, True), 10)
+            n3 = (True, True, True)
+            bwd2 = {
+                "ms": cuda_ms(lambda: gs.grid_sample_patch_bwd2_cuda(
+                    g, image, coords, gg_i, gg_c, n3), 10),
+                "plain_ms": cuda_ms(
+                    lambda: gs.grid_sample_patch_double_backward_plain(
+                        g, image, coords, gg_i, gg_c, n3), 3),
+                "library_ms": None,
+            }
+            bwd2["bound_ms"], bwd2["bound_by"] = _bound(
+                2 * vcn + 3 * img_b + 3 * pts_b, v * c * n * 60)
+        other_name = "nchw_ms" if which == "latent" else "channels_last_ms"
+        fwd[other_name] = fwd.pop("other_ms")
+        for name, rec in (("grid_sample_patch_fwd", fwd),
+                          ("grid_sample_patch_bwd", bwd),
+                          ("grid_sample_patch_bwd2", bwd2)):
+            rec["max_abs_err"] = errs[which][name]
+            rec["shape"] = [list(shape), n]
             if which == "latent":
-                rec.update({
-                    "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": max(bytes_ms, ops_ms),
-                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                    "library_ms": lib_ms, "shape": [list(shape), n],
-                    "max_abs_err": errs["latent"][name]})
+                out[name] = rec
             else:
-                rec.update({"rgb_shape": [list(shape), n], "rgb_ms": ms,
-                            "rgb_plain_ms": plain_ms,
-                            "rgb_bound_ms": max(bytes_ms, ops_ms),
-                            "rgb_library_ms": lib_ms,
-                            "rgb_max_abs_err": errs["rgb"][name]})
-            log(f"[7] {name} {which} {tuple(shape)} x {n}: kernel {ms:.3f} "
-                f"ms, plain {plain_ms:.3f} ms, library "
-                f"{'-' if lib_ms is None else f'{lib_ms:.3f}'} ms, bound "
-                f"{max(bytes_ms, ops_ms):.4f} ms")
-    for name, key in (("grid_sample_patch_bwd", "grid_sample_patch_bwd_cuda"),
-                      ("grid_sample_patch_bwd2",
-                       "grid_sample_patch_bwd2_cuda")):
-        args = captured[key]
-        fn = getattr(gs, key)
+                out[name]["rgb"] = rec
+            lib = rec["library_ms"]
+            extra = ", ".join(
+                f"{k} {val:.4f}" for k, val in rec.items()
+                if k.endswith(("_ms", "_us")) and k not in (
+                    "ms", "plain_ms", "library_ms", "bound_ms"))
+            log(f"[7] {name} {which} {tuple(shape)} x {n}: kernel "
+                f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, "
+                f"library {'-' if lib is None else f'{lib:.4f}'} ms, bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+                + (f"; {extra}" if extra else ""))
+    out["grid_sample_patch_bwd"]["library_note"] = LIBRARY_BWD_NOTE
+
+    sets = {}
+    for label, (args, need) in captured["bwd"].items():
+        g, image, coords = args
+        v, c, h, w = image.shape
+        n = coords.shape[1]
         with uncounted():
-            ms = cuda_ms(lambda: fn(*args), 10)
-        out[name]["train_inputs_ms"] = ms
-        out[name]["train_inputs_shape"] = [list(args[1].shape),
-                                           args[2].shape[1]]
-        log(f"[7] {name} on a smooth step's latent inputs "
-            f"{tuple(args[1].shape)} x {args[2].shape[1]}: {ms:.3f} ms")
+            rec = {
+                "need": list(need),
+                "ms": cuda_ms(lambda: gs.grid_sample_patch_bwd_cuda(
+                    g, image, coords, *need), 10),
+                "device_ms": device_ms(
+                    lambda: gs.grid_sample_patch_bwd_cuda(
+                        g, image, coords, *need), 10),
+                "both_outputs_ms": cuda_ms(
+                    lambda: gs.grid_sample_patch_bwd_cuda(
+                        g, image, coords, True, True), 10),
+                "plain_ms": cuda_ms(
+                    lambda: gs.grid_sample_patch_backward_plain(
+                        g, image, coords, *need), 3),
+                "library_ms": cuda_ms(_library_bwd(g, image, coords, need),
+                                      10),
+                "shape": [list(image.shape), n],
+                "g_strides": list(g.stride()),
+                "image_strides": list(image.stride()),
+            }
+        rec["bound_ms"], rec["bound_by"] = _bound(
+            *_bwd_work(v, c, h, w, n, need))
+        sets[label.replace(" ", "_")] = rec
+        log(f"[7] grid_sample_patch_bwd on the {label}'s latent inputs "
+            f"{tuple(image.shape)} x {n}, need {need}: kernel "
+            f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}; both outputs "
+            f"{rec['both_outputs_ms']:.4f}), "
+            f"plain {rec['plain_ms']:.3f} ms, library "
+            f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms")
+    out["grid_sample_patch_bwd"]["captured"] = sets
+    for label in ("plain_step", "smooth_step"):
+        out["grid_sample_patch_bwd"][f"{label}_inputs_ms"] = sets[label]["ms"]
+    args = captured["bwd2"]
+    with uncounted():
+        ms = cuda_ms(lambda: gs.grid_sample_patch_bwd2_cuda(*args), 10)
+    out["grid_sample_patch_bwd2"]["smooth_step_inputs_ms"] = ms
+    log(f"[7] grid_sample_patch_bwd2 on the smooth step's latent inputs "
+        f"{tuple(args[1].shape)} x {args[2].shape[1]}: {ms:.4f} ms")
     return out
 
 
@@ -777,16 +1094,23 @@ def main():
         if not ok:
             return 1
     serving_launches = read_counts()
+    copies = layout_copies()
     log(f"[4] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean view "
         f"{sum(view_ms) / len(view_ms):.1f} ms; launches "
-        f"{json.dumps(serving_launches)}")
+        f"{json.dumps(serving_launches)}; K2 layout copies {copies}: "
+        f"{'ok' if copies == 0 else 'FAIL'}")
+    if copies:
+        return 1
     breakdown(renderer, smpl, item, 1, view_ms[0])
     del renderer, model
     torch.cuda.empty_cache()
 
     # ---- 5. training at full width
     train_launches, _, captured = train_full_width(dev)
+    # phase 2 on the inputs phase 5 captured
+    for name, e in compare_captured(captured).items():
+        k2_errs["latent"][name] = max(k2_errs["latent"][name], e)
 
     # ---- 6. the variant probe
     reset_counts()

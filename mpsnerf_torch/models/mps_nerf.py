@@ -103,7 +103,8 @@ class MPSNeRF(nn.Module):
     # ---- stage 1: per-view image encoding --------------------------------
 
     def encode(self, images: torch.Tensor) -> torch.Tensor:
-        """images (V, 3, H, W) -> latent (V, C, H/4, W/4)."""
+        """images (V, 3, H, W) -> latent (V, C, H/4, W/4), channels-last
+        in memory (see ``SpatialEncoder``)."""
         return self.encoder_2d(images)
 
     # ---- stage 2: per-point query ------------------------------------------

@@ -71,7 +71,10 @@ class _Backbone(nn.Module):
 
 
 class SpatialEncoder(nn.Module):
-    """images (V, 3, H, W) -> latent (V, 128, H/4, W/4)."""
+    """images (V, 3, H, W) -> latent (V, 128, H/4, W/4) in
+    ``torch.channels_last`` memory: a pixel's 128 channels are contiguous,
+    as the patch grid-sample kernels read them (one layout copy per
+    encode, none per sample)."""
 
     LATENT_CHANNELS = 128
 
@@ -83,4 +86,5 @@ class SpatialEncoder(nn.Module):
         x = F.avg_pool2d(images, 2)  # area downsample by 2
         m = self.model
         x = F.relu(m.bn1(m.conv1(x)))
-        return torch.cat([x, m.layer1(x)], dim=1)
+        return torch.cat([x, m.layer1(x)], dim=1).contiguous(
+            memory_format=torch.channels_last)

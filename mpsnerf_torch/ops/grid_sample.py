@@ -25,6 +25,21 @@ Each of the three has a CUDA kernel (``mpsnerf_torch/csrc/
 grid_sample_patch.cu``) for CUDA tensors and a plain PyTorch version,
 written on the 4-corner helpers below, for CPU tensors.  There is no
 fallback: a CUDA tensor reaches the kernel or raises.
+
+The kernels read the image and the upstream gradient through their
+strides, so no call copies a layout: the encoder's latent is channels-last
+(its 128 channels contiguous: the channel-tiled kernels, a warp's lanes
+over channels, the image gradient summed per distinct pixel of a 64-point
+tile before one vector atomic), the RGB lies as (V, 3, H, W) (the
+per-point kernels).  Only a wide image (C % 4 == 0) whose channels are
+not innermost is copied to channels-last, counted in ``LAYOUT_COPIES``.
+The forward returns (V, C, N) as a view of (V, N, C) memory, as the plain
+version does.  The backward computes only the gradients the running
+backward wants: no coordinate gradient for coords that carry none (the
+plain train step), no image scatter for an image whose gradient the
+engine will not use (the RGB; the latent under the occupancy normal's
+inner ``autograd.grad``).  How each kernel is bounded and designed is in
+the ``.cu`` header.
 """
 
 from __future__ import annotations
@@ -38,6 +53,9 @@ from torch.autograd.function import once_differentiable
 # launches of the CUDA kernels since the last reset (chip_smoke.py reads it)
 LAUNCHES = {"grid_sample_patch_fwd": 0, "grid_sample_patch_bwd": 0,
             "grid_sample_patch_bwd2": 0}
+# channels-last copies the wrappers made of a wide image that lay otherwise
+# (chip_smoke.py holds it at 0 on the main path)
+LAYOUT_COPIES = {"grid_sample_patch": 0}
 
 # d^2 w_k / d ix d iy of the corners nw, ne, sw, se (the weights are
 # bilinear, so d^2 w_k / d ix^2 = d^2 w_k / d iy^2 = 0)
@@ -133,20 +151,23 @@ def _scatter(shape, lin: List[torch.Tensor], vals: List[torch.Tensor]):
     return out.reshape(v, c, h, w)
 
 
-def grid_sample_patch_backward_plain(g, image, coords, need_image: bool):
+def grid_sample_patch_backward_plain(g, image, coords, need_image: bool,
+                                     need_coords: bool):
     """K2's backward in plain PyTorch: the VJP of the 4-corner form,
-    ``(d image (V, C, H, W) or None, d coords (V, N, 2))``."""
+    ``(d image (V, C, H, W) or None, d coords (V, N, 2) or None)``."""
     v, c, h, w = image.shape
     k = _Corners(coords, h, w)
-    flat = image.reshape(v, c, h * w)
-    vals = [_gather(flat, lin) for lin in k.lin]
-    gx = (g * _weighted(vals, k.dwx)).sum(1) * k.sx
-    gy = (g * _weighted(vals, k.dwy)).sum(1) * k.sy
-    d_image = None
+    d_image = d_coords = None
+    if need_coords:
+        flat = image.reshape(v, c, h * w)
+        vals = [_gather(flat, lin) for lin in k.lin]
+        gx = (g * _weighted(vals, k.dwx)).sum(1) * k.sx
+        gy = (g * _weighted(vals, k.dwy)).sum(1) * k.sy
+        d_coords = torch.stack([gx, gy], dim=-1)
     if need_image:
         d_image = _scatter(image.shape, k.lin,
                            [g * wt[:, None, :] for wt in k.w])
-    return d_image, torch.stack([gx, gy], dim=-1)
+    return d_image, d_coords
 
 
 def grid_sample_patch_double_backward_plain(
@@ -226,27 +247,39 @@ def _expect(name: str, **shapes):
 
 
 def _channels_last(x: torch.Tensor) -> torch.Tensor:
-    """(V, C, H, W) -> a contiguous (V, H, W, C) copy."""
-    return x.permute(0, 2, 3, 1).contiguous()
+    """``x`` (V, C, H, W) as the kernels read it, through its strides: as
+    it lies when its channels are innermost (the encoder's channels-last
+    latent) or when C % 4 != 0 (the RGB, read by the per-point kernels);
+    else a channels-last copy, counted in ``LAYOUT_COPIES`` (none on the
+    main path)."""
+    if x.shape[1] % 4 == 0 and x.stride(1) != 1:
+        LAYOUT_COPIES["grid_sample_patch"] += 1
+        x = x.contiguous(memory_format=torch.channels_last)
+    return x
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def _strides(t: Optional[torch.Tensor], n: int) -> Tuple[int, ...]:
+    return (0,) * n if t is None else t.stride()
+
+
 # argument types of the three C entry points (after them: the stream)
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
 _ARGTYPES = {
-    "mpsnerf_grid_sample_patch_fwd": [_PTR] * 3 + [_I64] * 5,
-    "mpsnerf_grid_sample_patch_bwd": [_PTR] * 5 + [_I64] * 5,
-    "mpsnerf_grid_sample_patch_bwd2": [_PTR] * 8 + [_I64] * 5,
+    "mpsnerf_grid_sample_patch_fwd": [_PTR] * 3 + [_I64] * 9,
+    "mpsnerf_grid_sample_patch_bwd": [_PTR] * 5 + [_I64] * 12,
+    "mpsnerf_grid_sample_patch_bwd2": [_PTR] * 8 + [_I64] * 16,
 }
 _FNS = {}
 
 
 def _launch(symbol: str, counter: str, dev, *args):
     """Call the C entry point ``symbol`` on the current stream of ``dev``
-    (pointers as ints, then sizes) and count one launch of ``counter``."""
+    (pointers as ints, then sizes and strides) and count one launch of
+    ``counter``."""
     fn = _FNS.get(symbol)
     if fn is None:
         from mpsnerf_torch.cuda_build import load_kernel_library
@@ -255,46 +288,55 @@ def _launch(symbol: str, counter: str, dev, *args):
         fn.argtypes = _ARGTYPES[symbol] + [_PTR]
         fn.restype = ctypes.c_int
         _FNS[symbol] = fn
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    # the raw current stream and device, without Stream objects or lazy
+    # init checks: the small RGB calls are bound by this host path
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch._C._cuda_getDevice():
         err = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
     LAUNCHES[counter] += 1
 
 
 def grid_sample_patch_fwd_cuda(image: torch.Tensor, coords: torch.Tensor):
-    """K2 forward on the card: (V, C, N)."""
+    """K2 forward on the card: (V, C, N), a view of (V, N, C) memory (as
+    the plain version returns it).  The image is read where it lies (see
+    :func:`_channels_last`)."""
     name = "grid_sample_patch_fwd_cuda"
     dev = _check_cuda(name, image=image, coords=coords)
     v, c, h, w, n = _shapes(name, image, coords)
-    out = torch.empty(v, c, n, device=dev)
-    if out.numel() == 0:
-        return out
-    img = _channels_last(image)
-    crd = coords.contiguous()
-    _launch("mpsnerf_grid_sample_patch_fwd", "grid_sample_patch_fwd", dev,
-            img.data_ptr(), crd.data_ptr(), out.data_ptr(),
-            v, c, h, w, n)
+    out = torch.empty_strided((v, c, n), (n * c, 1, c), device=dev)
+    if out.numel() > 0:
+        img = _channels_last(image)
+        crd = coords.contiguous()
+        _launch("mpsnerf_grid_sample_patch_fwd", "grid_sample_patch_fwd", dev,
+                img.data_ptr(), crd.data_ptr(), out.data_ptr(),
+                v, c, h, w, n, *img.stride())
     return out
 
 
-def grid_sample_patch_bwd_cuda(g, image, coords, need_image: bool):
-    """K2 backward on the card: ``(d image or None, d coords)``.  The image
-    gradient is summed with atomics into a channels-last buffer and
-    returned as a (V, C, H, W) view of it."""
+def grid_sample_patch_bwd_cuda(g, image, coords, need_image: bool,
+                               need_coords: bool):
+    """K2 backward on the card: ``(d image or None, d coords or None)``.
+    ``g`` is read through its strides.  The image gradient is summed with
+    atomics into a channels-last buffer and returned as a (V, C, H, W)
+    view of it; without ``need_coords`` no coordinate gradient is
+    allocated or computed and the image is not read."""
     name = "grid_sample_patch_bwd_cuda"
     dev = _check_cuda(name, g=g, image=image, coords=coords)
     v, c, h, w, n = _shapes(name, image, coords)
     _expect(name, g=(g, (v, c, n)))
-    d_coords = torch.empty(v, n, 2, device=dev)
     d_hwc = torch.zeros(v, h, w, c, device=dev) if need_image else None
-    if n > 0:
-        img = _channels_last(image)
-        gc, crd = g.contiguous(), coords.contiguous()
+    d_coords = torch.empty(v, n, 2, device=dev) if need_coords else None
+    if n > 0 and (need_image or need_coords):
+        img = _channels_last(image) if need_coords else image
+        crd = coords.contiguous()
         _launch("mpsnerf_grid_sample_patch_bwd", "grid_sample_patch_bwd", dev,
-                gc.data_ptr(), img.data_ptr(), crd.data_ptr(),
-                _ptr(d_hwc), d_coords.data_ptr(), v, c, h, w, n)
+                g.data_ptr(), img.data_ptr(), crd.data_ptr(), _ptr(d_hwc),
+                _ptr(d_coords), v, c, h, w, n, *g.stride(), *img.stride())
     return (None if d_hwc is None else d_hwc.permute(0, 3, 1, 2)), d_coords
 
 
@@ -314,15 +356,14 @@ def grid_sample_patch_bwd2_cuda(g, image, coords, gg_image, gg_coords,
     d_hwc = torch.zeros(v, h, w, c, device=dev) if need_image else None
     d_coords = torch.empty(v, n, 2, device=dev) if need_coords else None
     if n > 0 and (need_g or need_image or need_coords):
-        img = _channels_last(image)
-        gg_hwc = None if gg_image is None else _channels_last(gg_image)
         ggc = None if gg_coords is None else gg_coords.contiguous()
-        gc, crd = g.contiguous(), coords.contiguous()
+        crd = coords.contiguous()
         _launch("mpsnerf_grid_sample_patch_bwd2", "grid_sample_patch_bwd2",
-                dev, gc.data_ptr(), img.data_ptr(),
-                crd.data_ptr(), _ptr(gg_hwc), _ptr(ggc),
+                dev, g.data_ptr(), image.data_ptr(),
+                crd.data_ptr(), _ptr(gg_image), _ptr(ggc),
                 _ptr(d_g), _ptr(d_hwc), _ptr(d_coords),
-                v, c, h, w, n)
+                v, c, h, w, n, *g.stride(), *image.stride(),
+                *_strides(gg_image, 4))
     return d_g, (None if d_hwc is None else d_hwc.permute(0, 3, 1, 2)), \
         d_coords
 
@@ -333,18 +374,34 @@ def _on_cpu(*tensors) -> bool:
     return all(t is None or t.device.type == "cpu" for t in tensors)
 
 
+def _grad_reaches(ctx, i: int) -> bool:
+    """Whether the running backward wants input ``i``'s gradient.
+    ``needs_input_grad`` is fixed when the forward runs; ``autograd.grad``
+    runs only the nodes on its way to its inputs (the occupancy normal's
+    inner gradient is taken for the points, not the latent).  The engine
+    cannot answer for a leaf under ``autograd.grad``: a leaf that needs a
+    gradient keeps it."""
+    if not ctx.needs_input_grad[i]:
+        return False
+    node = ctx.next_functions[i][0]
+    if node is None or type(node).__name__ == "AccumulateGrad":
+        return True
+    return torch._C._will_engine_execute_node(node)
+
+
 class GridSamplePatchBackward(torch.autograd.Function):
     """K2's backward as a differentiable function of ``(g, image,
     coords)``; its own backward is K2's double backward."""
 
     @staticmethod
-    def forward(ctx, g, image, coords, need_image: bool):
+    def forward(ctx, g, image, coords, need_image: bool, need_coords: bool):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(g, image, coords)
         if _on_cpu(g, image, coords):
             return grid_sample_patch_backward_plain(g, image, coords,
-                                                    need_image)
-        return grid_sample_patch_bwd_cuda(g, image, coords, need_image)
+                                                    need_image, need_coords)
+        return grid_sample_patch_bwd_cuda(g, image, coords, need_image,
+                                          need_coords)
 
     @staticmethod
     @once_differentiable
@@ -352,14 +409,14 @@ class GridSamplePatchBackward(torch.autograd.Function):
         g, image, coords = ctx.saved_tensors
         need = tuple(ctx.needs_input_grad[:3])
         if (gg_image is None and gg_coords is None) or not any(need):
-            return None, None, None, None
+            return None, None, None, None, None
         args = (g, image, coords, gg_image, gg_coords, need)
         if _on_cpu(g, image, coords, gg_image, gg_coords):
             d_g, d_image, d_coords = \
                 grid_sample_patch_double_backward_plain(*args)
         else:
             d_g, d_image, d_coords = grid_sample_patch_bwd2_cuda(*args)
-        return d_g, d_image, d_coords, None
+        return d_g, d_image, d_coords, None, None
 
 
 class GridSamplePatch(torch.autograd.Function):
@@ -375,11 +432,15 @@ class GridSamplePatch(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         image, coords = ctx.saved_tensors
-        # the image scatter is skipped for inputs that carry no gradient
-        # (the RGB images; the latent under the encoder does)
-        d_image, d_coords = GridSamplePatchBackward.apply(
-            g, image, coords, ctx.needs_input_grad[0])
-        return d_image, d_coords
+        # no image scatter where the image's gradient is not wanted (the
+        # RGB images; the latent under the normal's inner gradient), no
+        # coordinate gradient where the coords carry none (the plain step)
+        need_image = _grad_reaches(ctx, 0)
+        need_coords = ctx.needs_input_grad[1]
+        if not (need_image or need_coords):
+            return None, None
+        return GridSamplePatchBackward.apply(g, image, coords, need_image,
+                                             need_coords)
 
 
 def grid_sample_2d_patch(image: torch.Tensor, coords: torch.Tensor):

@@ -8,10 +8,11 @@
 for 8-connected lines at integer vertices: each polygon's outline is drawn
 with the 8-connected Bresenham line (clipped to the image as OpenCV clips
 it), then its inside is filled by OpenCV's scanline walk over 16.16
-fixed-point edges.  The tests hold it equal to ``cv2.fillPoly`` for convex
-polygons and for the projected faces of boxes in front of the camera;
-OpenCV fills some self-intersecting polygons that leave the image
-differently at the image's border, which no box face of the path is.
+fixed-point edges.  A side that leaves the image takes its edge's x from
+its clipped ends, and its rows from them only where the clipped ends lie on
+two rows, as OpenCV does.  The tests hold it equal to ``cv2.fillPoly`` for
+convex polygons, for the projected faces of boxes in front of the camera
+and for random (also self-intersecting) polygons that leave the image.
 """
 
 from __future__ import annotations
@@ -180,10 +181,13 @@ def _collect_edges(mask: np.ndarray, pts, color, edges) -> None:
         c0 = [x0 << _XY_SHIFT, y0]
         c1 = [x1 << _XY_SHIFT, y1]
         if _outside(w, h, (x0, y0), (x1, y1)):
+            # the clipped ends give the edge's x always, its y only when
+            # they differ: a side that touches the image in one point (or
+            # misses it) keeps its rows but runs at the clipped x
             _, t0, t1 = _clip_line(w, h, (x0, y0), (x1, y1))
             if t0[1] != t1[1]:
-                c0 = [t0[0] << _XY_SHIFT, t0[1]]
-                c1 = [t1[0] << _XY_SHIFT, t1[1]]
+                c0[1], c1[1] = t0[1], t1[1]
+            c0[0], c1[0] = t0[0] << _XY_SHIFT, t1[0] << _XY_SHIFT
         if y0 != y1:
             num, den = c1[0] - c0[0], c1[1] - c0[1]
             dxe = abs(num) // abs(den) * (1 if (num < 0) == (den < 0) else -1)

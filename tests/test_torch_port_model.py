@@ -173,6 +173,28 @@ def test_spatial_encoder(scene):
                                atol=1e-4)
 
 
+def test_encode_latent_is_channels_last_and_matches_jax(scene):
+    """``MPSNeRF.encode`` returns the latent channels-last in memory (the
+    layout the patch grid-sample kernels read, made once per encode) with
+    the logical shape (V, C, H/4, W/4) and JAX's values (atol 1e-4, as
+    above); features sampled from it equal those from a contiguous copy."""
+    from mpsnerf_torch.ops.grid_sample import index_features_patch
+
+    with torch.no_grad():
+        lat = scene["t_model"].encode(scene["t_inp"]["img_all"])
+    assert lat.shape == tuple(np.asarray(scene["latent"]).shape)
+    assert lat.is_contiguous(memory_format=torch.channels_last)
+    assert lat.stride(1) == 1
+    np.testing.assert_allclose(np.asarray(scene["latent"]), lat.numpy(),
+                               atol=1e-4)
+    uv = torch.rand(lat.shape[0], 50, 2,
+                    generator=torch.Generator().manual_seed(0)) * 64
+    torch.testing.assert_close(
+        index_features_patch(lat, uv, (64.0, 64.0)),
+        index_features_patch(lat.contiguous(), uv, (64.0, 64.0)),
+        rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("out_views", [None, 2])
 def test_transformer(out_views):
     """atol 1e-5: LayerNorm statistics and softmax in fp32 (flax takes

@@ -457,21 +457,110 @@ def test_grid_sample_patch_gradcheck_and_gradgradcheck():
 
 def test_grid_sample_patch_skips_the_image_scatter(monkeypatch):
     """An image that carries no gradient (the RGB inputs) gets no scatter:
-    the backward is asked for the coordinate gradient only."""
+    the backward is asked for the coordinate gradient only; coords that
+    carry none (the latent's in the plain train step) get no coordinate
+    gradient, and the image gradient still equals JAX's."""
     seen = []
     plain = t_grid_sample.grid_sample_patch_backward_plain
 
-    def spy(g, image, coords, need_image):
-        seen.append(need_image)
-        return plain(g, image, coords, need_image)
+    def spy(g, image, coords, need_image, need_coords):
+        seen.append((need_image, need_coords))
+        out = plain(g, image, coords, need_image, need_coords)
+        assert (out[0] is None) != need_image
+        assert (out[1] is None) != need_coords
+        return out
 
     monkeypatch.setattr(t_grid_sample, "grid_sample_patch_backward_plain", spy)
-    img, crd, *_ = _k2_case(3)
+    img, crd, g, *_ = _k2_case(3)
     tc = torch.tensor(crd, requires_grad=True)
     t_grid_sample.grid_sample_2d_patch(torch.tensor(img), tc).sum().backward()
     ti = torch.tensor(img, requires_grad=True)
-    t_grid_sample.grid_sample_2d_patch(ti, torch.tensor(crd)).sum().backward()
-    assert seen == [False, True] and ti.grad is not None
+    t_grid_sample.grid_sample_2d_patch(ti, torch.tensor(crd)).backward(
+        torch.tensor(g))
+    assert seen == [(False, True), (True, False)] and tc.grad is not None
+    _, vjp = jax.vjp(j_grid_sample.grid_sample_2d_patch, jnp.asarray(img),
+                     jnp.asarray(crd))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    np.testing.assert_allclose(ti.grad.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_grid_sample_patch_inner_gradient_skips_the_image_scatter(
+        monkeypatch):
+    """The occupancy normal's inner ``autograd.grad`` is taken for the
+    points only: the latent's scatter is skipped there (the engine would
+    drop it), and the outer gradients through the double backward are the
+    same as when it is computed."""
+    img, crd, g, *_ = _k2_case(6)
+
+    def run():
+        seen = []
+        plain = t_grid_sample.grid_sample_patch_backward_plain
+
+        def spy(g_, image, coords, need_image, need_coords):
+            seen.append((need_image, need_coords))
+            return plain(g_, image, coords, need_image, need_coords)
+
+        monkeypatch.setattr(t_grid_sample,
+                            "grid_sample_patch_backward_plain", spy)
+        leaf = torch.tensor(img, requires_grad=True)
+        latent = leaf * 1.0  # a non-leaf, as the encoder's output is
+        tc = torch.tensor(crd, requires_grad=True)
+        out = t_grid_sample.grid_sample_2d_patch(latent, tc)
+        (normal,) = torch.autograd.grad(out, tc, torch.tensor(g),
+                                        create_graph=True)
+        ((out ** 2).sum() + (normal ** 2).sum()).backward()
+        monkeypatch.undo()
+        return seen, leaf.grad, tc.grad
+
+    seen, d_img, d_crd = run()
+    assert seen == [(False, True), (True, True)]
+    monkeypatch.setattr(t_grid_sample, "_grad_reaches",
+                        lambda ctx, i: ctx.needs_input_grad[i])
+    seen_all, d_img_all, d_crd_all = run()
+    assert seen_all == [(True, True), (True, True)]
+    torch.testing.assert_close(d_img, d_img_all, rtol=0, atol=0)
+    torch.testing.assert_close(d_crd, d_crd_all, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd", "bwd2"])
+def test_grid_sample_patch_plain_versions_on_a_channels_last_image(which):
+    """The plain versions give the same values on a channels-last image
+    (the encoder's latent) as on a contiguous one, exactly."""
+    img, crd, g, gg_i, gg_c = map(_t, _k2_case(7, c=8))
+    last = img.contiguous(memory_format=torch.channels_last)
+    gg_last = gg_i.contiguous(memory_format=torch.channels_last)
+    assert last.stride(1) == 1 and torch.equal(last, img)
+    for a, b in zip(_k2_plain(img, crd, g, gg_i, gg_c, which),
+                    _k2_plain(last, crd, g, gg_last, gg_c, which)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _k2_plain(img, crd, g, gg_i, gg_c, which):
+    if which == "fwd":
+        return [t_grid_sample.grid_sample_2d_patch_plain(img, crd)]
+    if which == "bwd":
+        return list(t_grid_sample.grid_sample_patch_backward_plain(
+            g, img, crd, True, True))
+    return list(t_grid_sample.grid_sample_patch_double_backward_plain(
+        g, img, crd, gg_i, gg_c, (True, True, True)))
+
+
+def test_layout_copies_only_for_wide_images_with_spread_channels():
+    """The wrappers' layout rule, on the CPU (nothing is launched): a
+    channels-last latent and a (V, 3, H, W) RGB are read as they lie; only
+    a wide image whose channels are not innermost is copied, and counted."""
+    copies = t_grid_sample.LAYOUT_COPIES
+    before = copies["grid_sample_patch"]
+    latent = torch.zeros(2, 8, 5, 6).contiguous(
+        memory_format=torch.channels_last)
+    rgb = torch.zeros(2, 3, 5, 6)
+    assert t_grid_sample._channels_last(latent) is latent
+    assert t_grid_sample._channels_last(rgb) is rgb
+    assert copies["grid_sample_patch"] == before
+    spread = t_grid_sample._channels_last(torch.zeros(2, 8, 5, 6))
+    assert spread.stride(1) == 1 and copies["grid_sample_patch"] == before + 1
+    copies["grid_sample_patch"] = before
 
 
 def test_grid_sample_4_corner_form_matches_jax():
@@ -493,7 +582,8 @@ def test_grid_sample_cuda_wrappers_reject_cpu_tensors(which):
         if which == "fwd":
             t_grid_sample.grid_sample_patch_fwd_cuda(img, crd)
         elif which == "bwd":
-            t_grid_sample.grid_sample_patch_bwd_cuda(g, img, crd, True)
+            t_grid_sample.grid_sample_patch_bwd_cuda(g, img, crd, True,
+                                                     True)
         else:
             t_grid_sample.grid_sample_patch_bwd2_cuda(
                 g, img, crd, gg_i, gg_c, (True, True, True))

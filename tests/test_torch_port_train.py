@@ -145,9 +145,8 @@ def test_bound_2d_mask_equals_cv2():
 @pytest.mark.parametrize("seed", [0, 1])
 def test_fill_poly_equals_cv2_on_convex_polygons(seed):
     """Random convex polygons inside the image, with and without a
-    repeated closing vertex.  (Polygons that leave the image are pinned
-    through the box masks above; on some of those OpenCV fills one more
-    border pixel than the transcription, see ROADMAP.md.)"""
+    repeated closing vertex.  (Polygons that leave the image: the box
+    masks above and the tests below.)"""
     rng = np.random.default_rng(seed)
     for t in range(150):
         H, W = int(rng.integers(8, 90)), int(rng.integers(8, 90))
@@ -163,6 +162,44 @@ def test_fill_poly_equals_cv2_on_convex_polygons(seed):
         cv2.fillPoly(a, [pts.astype(np.int32)], 1)
         b = t_rays.fill_poly(np.zeros((H, W), np.uint8), [pts], 1)
         np.testing.assert_array_equal(a, b, err_msg=str(pts.tolist()))
+
+
+def _fill_both(pts, H, W):
+    pts = np.asarray(pts, np.int64)
+    a = np.zeros((H, W), np.uint8)
+    cv2.fillPoly(a, [pts.astype(np.int32)], 1)
+    return a, t_rays.fill_poly(np.zeros((H, W), np.uint8), [pts], 1)
+
+
+@pytest.mark.parametrize("pts", [
+    [[18, -15], [-40, 22], [67, 2], [82, -12], [-20, 16]],
+    [[11, 20], [-8, 75], [0, 23]],
+    [[91, 11], [46, 97], [-26, 100]],
+])
+def test_fill_poly_equals_cv2_where_a_side_touches_the_border(pts):
+    """Polygons with a side whose clipped ends fall on one point of the
+    border: OpenCV runs that side's edge at the clipped x, so it fills a
+    border column the unclipped edge would leave empty (column 0, rows
+    1-10 of the first polygon, rows 53-63 of the second; column 63, rows
+    11-31 of the third)."""
+    a, b = _fill_both(pts, 64, 64)
+    assert (a[:, 0].any() or a[:, -1].any())
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fill_poly_equals_cv2_on_polygons_leaving_the_image(seed):
+    """150 seeded random polygons of 3-6 vertices per seed, self-intersecting
+    ones included, with vertices far outside a 64^2 or a 48x80 image."""
+    rng = np.random.default_rng(100 + seed)
+    left = 0
+    for t in range(150):
+        H, W, lo, hi = ((64, 64, -40, 104), (48, 80, -100, 180))[t % 2]
+        pts = rng.integers(lo, hi, (int(rng.integers(3, 7)), 2))
+        a, b = _fill_both(pts, H, W)
+        left += bool(((pts < 0) | (pts >= (W, H))).any())
+        np.testing.assert_array_equal(a, b, err_msg=str(pts.tolist()))
+    assert left >= 140
 
 
 def test_train_mode_encode_updates_batch_stats_like_flax(scene):
@@ -281,13 +318,27 @@ def test_compute_losses(smooth):
 
 
 @pytest.mark.parametrize("smooth,grad_tol", [(False, 1e-4), (True, 1e-3)])
-def test_view_step_loss_and_gradients_match_jax(scene, smooth, grad_tol):
+def test_view_step_loss_and_gradients_match_jax(scene, smooth, grad_tol,
+                                                monkeypatch):
     """One plain and one smooth view-step with perturb 0 and the JAX
     package's own smooth delta (``0.01 * normal(split(key, 3)[1])``): loss
     terms at atol 1e-5 and every parameter gradient within ``grad_tol``
     of its tensor's max |grad| (fp32 forward and double backward through
     the transformer and MLP summed in another order); the BN statistics
-    after the step at 1e-5."""
+    after the step at 1e-5.  The latent's K2 backward computes only what
+    the step uses: the plain step's one call no coordinate gradient, the
+    smooth step's inner normal gradients no image scatter."""
+    from mpsnerf_torch.ops import grid_sample as t_gs
+
+    seen = []
+    plain_bwd = t_gs.grid_sample_patch_backward_plain
+
+    def spy(g, image, coords, need_image, need_coords):
+        if image.shape[1] > 3:
+            seen.append((need_image, need_coords))
+        return plain_bwd(g, image, coords, need_image, need_coords)
+
+    monkeypatch.setattr(t_gs, "grid_sample_patch_backward_plain", spy)
     model, variables, inp = scene["model"], scene["variables"], scene["inp"]
     cfg = j_trainer.TrainConfig(n_samples=N_SAMPLES, perturb=0.0)
     key = jax.random.PRNGKey(5)
@@ -309,6 +360,8 @@ def test_view_step_loss_and_gradients_match_jax(scene, smooth, grad_tol):
         scene["t_smpl"], t_inp, t_inp, *t_trainer.train_rays(t_inp, 0, "cpu"),
         delta=torch.from_numpy(np.asarray(delta)))
     total.backward()
+    assert seen == ([(False, True)] * 2 + [(True, True)] * 2 if smooth
+                    else [(True, False)])
     for f in terms._fields:
         np.testing.assert_allclose(float(getattr(terms, f)),
                                    float(getattr(t_terms, f).detach()),
