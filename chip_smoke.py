@@ -7,18 +7,27 @@ Phases (each prints progress lines ending in ok/FAIL; any failure exits
 non-zero):
   1. the card's name and power limit; build every CUDA kernel from
      ``mpsnerf_torch/csrc`` (one nvcc per source, all started together);
-  2. every kernel against its plain PyTorch version on the card: the exact
-     1-NN (K1) at 131,072 x 6890 and at the fine pre-pass shape of the
-     full-width view (d2 to 1e-6, >= 99.9 % equal ids, every other id a
-     tie in exact d2); the packed-key 1-NN at 131,072 x 6890 (ids 100 %
-     equal); the patch grid-sample K2 forward (1e-6), backward (at each
-     pair of need_image/need_coords) and double backward (each output to
-     1e-5 of its max |value|) at the training shapes, latent
-     3x128x128x128 (channels-last as the encoder gives it, with g in both
-     layouts, and (V, C, H, W)-contiguous, whose per-call copy is counted)
-     and RGB 3x3x512x512 at 64,512 points; once phase 5 has captured them,
-     the backward and double backward again on a plain and a smooth
-     step's real latent inputs (and the flags those steps asked for);
+     count the 1-NN kernels' instructions per pair in their SASS (fails
+     where they differ from what the bounds assume);
+  2. every kernel against its plain PyTorch version on the card: K1's
+     bucket build on the rig, the posed rig, 1, 31 and 33 vertices and a
+     20,000-vertex table (table and boxes bit-equal); the exact 1-NN (K1,
+     bucketed and culled) at 131,072 x 6890, at the fine
+     pre-pass shape of the full-width view, on those queries in random
+     order, and on a 20,000-vertex table (the streamed path): ids 100 %
+     equal and d2 bit-equal; the packed-key 1-NN at 131,072 x 6890 (ids
+     100 % equal); the patch grid-sample K2 forward (1e-6), backward (at
+     each pair of need_image/need_coords) and double backward (each output
+     to 1e-5 of its max |value|; with a gg image in both layouts and
+     without one) at the training shapes, latent 3x128x128x128
+     (channels-last as the encoder gives it, with g in both layouts, and
+     (V, C, H, W)-contiguous, whose per-call copy is counted) and RGB
+     3x3x512x512 at 64,512 points; once phases 4 and 5 have captured
+     them, K1 on a served view's tail tile and on a plain step's two
+     calls (ids and d2 equal; the pairs the kernel evaluated beside the
+     plain emulation's), and K2's backward and double backward on a plain
+     and a smooth step's real latent inputs (and the flags those steps
+     asked for);
   3. CUDA against CPU at 64^2 (full 6890-vertex rig, seeded weights, TF32
      off): the serving render (pixels 1e-4, counts exact), and one plain
      and one smooth training loss (perturb 0, the same injected smooth
@@ -29,7 +38,8 @@ non-zero):
      for 3 requests after one warm-up view; each request must drop
      nothing, give finite pixels, accumulate opacity > 0.5 on > 1 % of the
      pixels and launch K1 at least twice and K2 forward; the encoded
-     latent must be channels-last and K2 must copy no layout;
+     latent must be channels-last and K2 must copy no layout; K1's and
+     all kernels' launches per view;
   5. training at full width: ``Trainer.train_item`` on two items of the
      synthetic train split (3 input views at 512^2, 4 output views, 1000
      rays per view-step, 128 samples, perturb 1), 8 view-steps of which 2
@@ -41,28 +51,48 @@ non-zero):
      2,572,288 x 6890;
   7. one ``{"kernels": [...]}`` line: each kernel's launches on its path
      and its times against its bound, the plain version and a library
-     call; for K2 also the RGB, the other image layout, and the backward
-     on each captured set (``captured``: plain step, smooth step inner,
-     smooth step) beside the yardstick of autograd through
-     ``F.grid_sample`` (not the same function at the border);
+     call; for K1 every shape the path launches (``shapes``: the fine
+     pre-pass, a tail tile, the plain step's mask and canonical calls,
+     random order, the streamed path) with its bound (what any exact 1-NN
+     must do: the bytes, and one pair per query), the pairs it evaluated
+     and the time the card needs for those and for every pair (the
+     instructions a pair counted in phase 1's SASS, over 132 SMs x 128
+     lanes x the card's maximum SM clock); for K2 also the RGB, the other
+     image layout, and the backward and double
+     backward on each captured set beside the yardstick of autograd
+     through ``F.grid_sample`` (not the same function at the border);
   8. the device line, last.
 
 Launch counts are set to 0 just before each path (phases 4, 5, 6) and
 read just after; launches made to compare or time a kernel do not count.
+``--stop-after N`` ends the run after phase N (a short check of a new
+kernel); it then prints no result lines.
 Weights are random, from seed 0, with the density head's bias set to +4 so
 that the body renders opaque.  This script imports nothing of jax or of
 the JAX package.
 """
 
+import collections
 import copy
 import json
 import subprocess
 import sys
 import time
 
-FLOPS_FP32 = 67e12   # H100 SXM fp32 rate outside the tensor cores
+FLOPS_FP32 = 67e12   # H100 SXM fp32 rate outside the tensor cores (FMA = 2)
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 rate
-OPS_PER_PAIR = 8     # 3 subtractions, 3 products, 2 additions
+FP32_LANES = 132 * 128  # H100 SXM: fp32 instructions issued a clock
+# arithmetic instructions per query-vertex pair that the sources lead one
+# to expect, none fused: K1's visit loop (3 subtractions, 3 products, 2
+# additions, a compare and 2 selects); the packed kernel's (the same 8, one
+# LOP3 for the key, one integer min).  Phase 1 counts them in the build's
+# SASS (visit_loop_instructions), fails where they are a whole instruction
+# off, and the bounds take the counted ones.
+K1_INSTR_PER_PAIR = 11
+PACKED_INSTR_PER_PAIR = 10
+PAIR_OPCODES = ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL", "SEL",
+                "LOP3", "VIMNMX", "VIMNMX3", "IMNMX")
+STREAMED_VERTS = 20000  # above the shared-memory table's 12,032 vertices
 
 KNN_SOURCE = "mpsnerf_torch/csrc/nearest_vertex.cu"
 KNN_REPLACES = "mpsnerf_tpu/ops/knn.py:76 (_nn_kernel, pallas_call at :139)"
@@ -78,9 +108,12 @@ GS_REPLACES = {
     "grid_sample_patch_bwd2": "mpsnerf_tpu/ops/grid_sample.py:142 "
     "(JAX autodiff of that VJP, run by the smooth loss)",
 }
-KERNEL_NAMES = ("nearest_vertex", "nearest_vertex_packed",
+KERNEL_NAMES = ("nearest_vertex", "vertex_buckets", "nearest_vertex_packed",
                 "grid_sample_patch_fwd", "grid_sample_patch_bwd",
                 "grid_sample_patch_bwd2")
+BUCKETS_REPLACES = ("mpsnerf_tpu/ops/knn.py:76 (_nn_kernel; the table "
+                    "build is part of K1's redesign, the TPU kernel has "
+                    "none)")
 TRAIN_SHAPES = {"latent": (3, 128, 128, 128), "rgb": (3, 3, 512, 512)}
 TRAIN_POINTS = 64512  # the tail capacity of 1000 rays x 128 samples
 
@@ -104,21 +137,38 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+SLEEP_CYCLES = 100_000_000  # >= 50 ms at the H100's 1980 MHz maximum
+
+
 def device_ms(fn, reps):
-    """Device time per call of every kernel ``fn`` launches, from
-    torch.profiler (the call time of ``cuda_ms`` also holds the host's
-    enqueue time when that is the longer)."""
+    """Device time per call of ``fn``: CUDA events around ``reps`` calls
+    that the host queues behind a sleep kernel, so that the card runs them
+    back to back whatever the host's enqueue time (the call time of
+    ``cuda_ms`` also holds that time when it is the longer).  None (not
+    measured) where queueing them took the host longer than the sleep."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in device_rows(prof)) \
-        / 1e3 / reps
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if queued_ms >= 0.8 * SLEEP_CYCLES / 1980e3:
+        log(f"[7] device time not measured: queueing took {queued_ms:.1f} ms")
+        return None
+    return start.elapsed_time(end) / reps
+
+
+def fmt(x, spec=".4f"):
+    """``x`` formatted, or "not measured" for None."""
+    return "not measured" if x is None else format(x, spec)
 
 
 def host_us(fn, reps):
@@ -181,29 +231,73 @@ def fail(msg):
     raise SystemExit(1)
 
 
-def compare_knn(q, v):
-    """Kernel against plain on the same inputs; returns max |d2 diff|."""
+def knn_pairs(q, v, buckets):
+    """The query-vertex pairs K1 evaluates on these inputs (its counter,
+    passed only here; the path passes none)."""
+    import torch
+
+    from mpsnerf_torch.ops import knn
+
+    pairs = torch.zeros(1, dtype=torch.int64, device=q.device)
+    with uncounted():
+        knn.nearest_vertex_cuda(q, v, buckets, pairs=pairs)
+    return int(pairs)
+
+
+def compare_buckets(label, v):
+    """The bucket-build kernel against its plain version: table and boxes
+    bit-equal."""
     import torch
 
     from mpsnerf_torch.ops import knn
 
     with uncounted():
-        d2_k, ids_k = knn.nearest_vertex_cuda(q, v)
-        d2_p, ids_p = knn.nearest_vertex_plain(q, v, block_elems=1 << 26)
+        k = knn.build_vertex_buckets_cuda(v)
         torch.cuda.synchronize()
-    err = float((d2_k - d2_p).abs().max())
-    same = float((ids_k == ids_p).double().mean())
-    diff = ids_k != ids_p
-    # every differing id must be a tie in exact d2 (the diff form at each id)
-    tie = bool(torch.equal(knn._d2(q[diff] - v[ids_k[diff]]),
-                           knn._d2(q[diff] - v[ids_p[diff]])))
-    ok = err <= 1e-6 and same >= 0.999 and tie
-    log(f"[2] knn {q.shape[0]} x {v.shape[0]}: max|d2 diff| {err:.3g}, "
-        f"equal ids {same:.6f}, differing ids all ties {tie}: "
-        f"{'ok' if ok else 'FAIL'}")
+    p = knn.build_vertex_buckets_plain(v)
+    ok = (torch.equal(k.table, p.table) and torch.equal(k.boxes, p.boxes)
+          and k.n_verts == p.n_verts)
+    log(f"[2] bucket build {label} ({v.shape[0]} vertices, "
+        f"{k.boxes.shape[0]} buckets): table and boxes bit-equal to plain "
+        f"{ok}: {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(1)
-    return err
+
+
+def compare_knn(label, q, v, buckets=None, emulate=False):
+    """K1 against its plain version on the same inputs: ids 100 % equal
+    and d2 bit-equal; with ``emulate``, the pairs the kernel evaluated
+    beside the plain emulation of its culled search.  Returns (max |d2
+    diff|, pairs evaluated)."""
+    import torch
+
+    from mpsnerf_torch.ops import knn
+
+    if buckets is None:
+        buckets = knn.build_vertex_buckets(v)
+    with uncounted():
+        d2_k, ids_k = knn.nearest_vertex_cuda(q, v, buckets)
+        torch.cuda.synchronize()
+    d2_p, ids_p = knn.nearest_vertex_plain(q, v, block_elems=1 << 26)
+    err = float((d2_k - d2_p).abs().max()) if q.shape[0] else 0.0
+    same = bool(torch.equal(ids_k, ids_p))
+    bits = bool(torch.equal(d2_k, d2_p))
+    pairs = knn_pairs(q, v, buckets)
+    text = ""
+    if emulate:
+        _, ids_e, pairs_e = knn.nearest_vertex_bucketed_plain(q, buckets)
+        text = (f", plain emulation of the culled search: {pairs_e} pairs "
+                f"(equal {pairs_e == pairs}), ids equal "
+                f"{bool(torch.equal(ids_e, ids_p))}")
+    ok = same and bits
+    log(f"[2] knn {label} {q.shape[0]} x {v.shape[0]} "
+        f"({buckets.boxes.shape[0]} buckets): ids equal {same}, d2 "
+        f"bit-equal {bits} (max|diff| {err:.3g}); pairs evaluated {pairs} "
+        f"({100 * pairs / max(1, q.shape[0] * v.shape[0]):.2f} % of brute "
+        f"force){text}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(1)
+    return err, pairs
 
 
 def compare_packed(q, v):
@@ -346,31 +440,42 @@ def compare_k2(name, shape, dev):
     from mpsnerf_torch.ops import grid_sample as gs
 
     image, coords, g, gg_i, gg_c = k2_inputs(shape, TRAIN_POINTS, 1, dev)
-    cases = [("nchw", image, g)]
+    # the double backward's gg image lies like the image in the first case
+    # (its channel-tiled kernel) and as (V, C, H, W) in the others (its
+    # per-point kernel)
+    cases = [("nchw", image, g, gg_i)]
     if name == "latent":
-        cases = [("channels-last", channels_last(image), channels_last(g)),
-                 ("channels-last, g (V,C,N)", channels_last(image), g)] \
+        cases = [("channels-last", channels_last(image), channels_last(g),
+                  channels_last(gg_i)),
+                 ("channels-last, g (V,C,N)", channels_last(image), g, gg_i)] \
             + cases
     need = (True, True, True)
     err = dict.fromkeys(("grid_sample_patch_fwd", "grid_sample_patch_bwd",
                          "grid_sample_patch_bwd2"), 0.0)
     ok_all = True
-    for label, img, gv in cases:
+    for label, img, gv, ggv in cases:
         copies0 = gs.LAYOUT_COPIES["grid_sample_patch"]
         with uncounted():
             fk = gs.grid_sample_patch_fwd_cuda(img, coords)
-            b2k = gs.grid_sample_patch_bwd2_cuda(gv, img, coords, gg_i, gg_c,
-                                                 need)
             torch.cuda.synchronize()
         fp = gs.grid_sample_2d_patch_plain(img, coords)
-        b2p = gs.grid_sample_patch_double_backward_plain(
-            gv, img, coords, gg_i, gg_c, need)
         f_err = float((fk - fp).abs().max())
         ok = f_err <= 1e-6 and fk.shape == fp.shape
         b_ok, b_err, b_text = compare_k2_bwd(label, gv, img, coords)
-        b2_ok, b2_err, b2_text = rel_errors(b2k, b2p, ("d_g", "d_image",
-                                                       "d_coords"))
-        ok &= b_ok and b2_ok
+        b2_texts, b2_err = [], 0.0
+        for gg_label, gg in (("gg image", ggv), ("no gg image", None)):
+            with uncounted():
+                b2k = gs.grid_sample_patch_bwd2_cuda(gv, img, coords, gg,
+                                                     gg_c, need)
+                torch.cuda.synchronize()
+            b2p = gs.grid_sample_patch_double_backward_plain(
+                gv, img, coords, gg, gg_c, need)
+            o, e, t = rel_errors(b2k, b2p, ("d_g", "d_image", "d_coords"))
+            ok &= o
+            b2_err = max(b2_err, e)
+            b2_texts.append(f"{gg_label}: {t}")
+        b2_text = "; ".join(b2_texts)
+        ok &= b_ok
         # beyond the border in one axis the coordinate gradient still has
         # its component along the border
         with uncounted():
@@ -396,18 +501,27 @@ def compare_k2(name, shape, dev):
 
 
 def compare_captured(captured):
-    """Phase 2 on the inputs phase 5 captured (real coordinates): each
-    backward set with the flags its step used and with both outputs, and
-    the double backward; returns the worst abs error of each kernel."""
+    """Phase 2 on the inputs phases 4 and 5 captured (real coordinates):
+    K1 on a tail tile and a plain step's two calls; each K2 backward set
+    with the flags its step used and with both outputs; the double
+    backward with its flags and with every output.  Returns the worst abs
+    error of each kernel."""
     import torch
 
     from mpsnerf_torch.ops import grid_sample as gs
 
-    err = {"grid_sample_patch_bwd": 0.0, "grid_sample_patch_bwd2": 0.0}
-    # the steps asked for exactly these: the plain step no coordinate
-    # gradient, the smooth step's inner normal gradients no image scatter
-    ok_all = set(captured["bwd"]) == {"plain step", "smooth step inner",
-                                      "smooth step"}
+    err = {"nearest_vertex": 0.0, "grid_sample_patch_bwd": 0.0,
+           "grid_sample_patch_bwd2": 0.0}
+    for label, (q, v, b) in captured["knn"].items():
+        e, _ = compare_knn(label, q, v, b, emulate=True)
+        err["nearest_vertex"] = max(err["nearest_vertex"], e)
+    # the steps asked for exactly these: the plain step and the smooth
+    # step's outer backward no coordinate gradient (the trainer's backward
+    # is taken for the parameters), its inner normal gradients no image
+    # scatter
+    want = {"plain step": (True, False), "smooth step inner": (False, True),
+            "smooth step": (True, False)}
+    ok_all = {k: need for k, (_, need) in captured["bwd"].items()} == want
     log(f"[2] K2 backward calls of a plain and a smooth step on the latent: "
         + ", ".join(f"{k} need {tuple(map(int, need))}"
                     for k, (_, need) in captured["bwd"].items())
@@ -421,19 +535,52 @@ def compare_captured(captured):
         log(f"[2] K2 on captured inputs {tuple(args[1].shape)} x "
             f"{args[2].shape[1]}, {text}: {'ok' if ok else 'FAIL'}")
     args = captured["bwd2"]
-    with uncounted():
-        k = gs.grid_sample_patch_bwd2_cuda(*args)
-        torch.cuda.synchronize()
-    ok, worst, text = rel_errors(
-        k, gs.grid_sample_patch_double_backward_plain(*args),
-        ("d_g", "d_image", "d_coords"))
-    err["grid_sample_patch_bwd2"] = worst
-    ok_all &= ok
-    log(f"[2] K2 on captured inputs, smooth step bwd2: {text}: "
-        f"{'ok' if ok else 'FAIL'}")
+    flags_ok = tuple(args[-1]) == (True, True, False) and args[3] is None
+    log(f"[2] K2 double backward of the smooth step on the latent: need "
+        f"(d g, d image, d coords) = {tuple(map(int, args[-1]))}, gg image "
+        f"{'none' if args[3] is None else 'given'}: "
+        f"{'ok' if flags_ok else 'FAIL'}")
+    ok_all &= flags_ok
+    for need in (tuple(args[-1]), (True, True, True)):
+        run = (*args[:-1], need)
+        with uncounted():
+            k = gs.grid_sample_patch_bwd2_cuda(*run)
+            torch.cuda.synchronize()
+        ok, worst, text = rel_errors(
+            k, gs.grid_sample_patch_double_backward_plain(*run),
+            ("d_g", "d_image", "d_coords"))
+        err["grid_sample_patch_bwd2"] = max(err["grid_sample_patch_bwd2"],
+                                            worst)
+        ok_all &= ok
+        log(f"[2] K2 on captured inputs, smooth step bwd2, need "
+            f"{tuple(map(int, need))}: {text}: {'ok' if ok else 'FAIL'}")
     if not ok_all:
         raise SystemExit(1)
     return err
+
+
+def capture_view_knn(renderer, item, k):
+    """K1's inputs in one served view: the fine pre-pass call and the
+    middle tail tile (canonical points against ``t_vertices``, with the
+    view's buckets)."""
+    from mpsnerf_torch.ops import knn
+
+    calls = []
+    wrapped = knn.nearest_vertex_cuda
+
+    def spy(query, verts, buckets=None, pairs=None):
+        calls.append((query.clone(), verts, buckets))
+        return wrapped(query, verts, buckets, pairs)
+
+    try:
+        knn.nearest_vertex_cuda = spy
+        with uncounted():
+            renderer.render_view(item, item, k)
+    finally:
+        knn.nearest_vertex_cuda = wrapped
+    tiles = calls[1:]
+    q, v, b = tiles[len(tiles) // 2]
+    return {"tail tile": (q, v, b)}, len(tiles)
 
 
 def fine_prepass_inputs(smpl, tp, rays, n_samples, tile):
@@ -501,7 +648,8 @@ def breakdown(renderer, smpl, item, k, unprofiled_ms):
     """Where one view's time goes: the three stages of render_view timed
     apart (synchronised between stages), then the same view under
     torch.profiler: the kernels' summed device time against the view's
-    unprofiled time (the device's busy share), and the top kernels."""
+    unprofiled time (the device's busy share), and the top kernels.
+    Returns the kernel launches of the profiled view."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -554,8 +702,10 @@ def breakdown(renderer, smpl, item, k, unprofiled_ms):
         renderer.render_view(item, item, k)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    log_profile("4", f"view {k}", device_rows(prof), wall_ms, unprofiled_ms,
+    rows = device_rows(prof)
+    log_profile("4", f"view {k}", rows, wall_ms, unprofiled_ms,
                 ("nearest_vertex", "grid_sample"))
+    return sum(e.count for e in rows)
 
 
 def compare_training(dev):
@@ -589,7 +739,7 @@ def compare_training(dev):
                 total, (terms, _) = make_loss_fn(model, cfg, smooth)(
                     rig, inp, inp, *train_rays(inp, 0, device),
                     delta=delta.to(device))
-                total.backward()
+                total.backward(inputs=list(model.parameters()))
                 res[name, smooth] = (
                     {f: float(getattr(terms, f).detach())
                      for f in terms._fields},
@@ -723,26 +873,29 @@ def train_full_width(dev):
         log_profile("5", f"{'smooth' if smooth else 'plain'} step",
                     device_rows(prof), wall_ms, unprofiled,
                     ("nearest_vertex", "grid_sample"))
-    return launches, records, capture_k2_inputs(trainer, smpl, items[1])
+    return launches, records, capture_train_inputs(trainer, smpl, items[1])
 
 
-def capture_k2_inputs(trainer, smpl, item):
-    """The latent's K2 backward inputs as one plain and one smooth step
-    give them (real points project onto clustered pixels, unlike the
-    uniform coords of phase 2), one set per (need_image, need_coords) the
-    steps asked for: the plain step's (1, 0), the smooth step's inner
-    normal gradients (0, 1) and its outer backward (1, 1); and the smooth
-    step's double backward inputs.  Copied for phase 2's comparison and
+def capture_train_inputs(trainer, smpl, item):
+    """The inputs of K1 and of the latent's K2 backward and double backward
+    as one plain and one smooth step give them (real points project onto
+    clustered pixels, unlike the uniform coords of phase 2): K1's two calls
+    of the plain step (the 5 cm mask against the posed vertices, the
+    canonical lookup against ``t_vertices``); K2's backward of the plain
+    step, of the smooth step's inner normal gradients and of its outer
+    backward, with the flags each asked for; the smooth step's first
+    double backward with its flags.  Copied for phase 2's comparison and
     phase 7's timings."""
     import torch
 
     from mpsnerf_torch.ops import grid_sample as gs
+    from mpsnerf_torch.ops import knn
 
-    names = {(True, False): "plain step", (False, True): "smooth step inner",
-             (True, True): "smooth step"}
-    bwd, bwd2 = {}, []
+    step = {"smooth": False}
+    bwd, bwd2, nn = {}, [], {}
     wrapped = {"grid_sample_patch_bwd_cuda": gs.grid_sample_patch_bwd_cuda,
                "grid_sample_patch_bwd2_cuda": gs.grid_sample_patch_bwd2_cuda}
+    wrapped_knn = knn.nearest_vertex_cuda
 
     def keep(tensors):
         # copies with the same strides: the layouts are part of the inputs
@@ -752,8 +905,10 @@ def capture_k2_inputs(trainer, smpl, item):
 
     def spy_bwd(g, image, coords, need_image, need_coords):
         need = (need_image, need_coords)
-        if image.shape[1] > 3 and names[need] not in bwd:
-            bwd[names[need]] = (keep((g, image, coords)), need)
+        label = ("plain step" if not step["smooth"] else
+                 "smooth step" if need_image else "smooth step inner")
+        if image.shape[1] > 3 and label not in bwd:
+            bwd[label] = (keep((g, image, coords)), need)
         return wrapped["grid_sample_patch_bwd_cuda"](g, image, coords, *need)
 
     def spy_bwd2(g, image, coords, *rest):
@@ -761,18 +916,28 @@ def capture_k2_inputs(trainer, smpl, item):
             bwd2.extend(keep((g, image, coords, *rest)))
         return wrapped["grid_sample_patch_bwd2_cuda"](g, image, coords, *rest)
 
+    def spy_knn(query, verts, buckets=None, pairs=None):
+        if not step["smooth"]:
+            label = "train canonical" if buckets is not None else \
+                "train mask"
+            nn.setdefault(label, (query.clone(), verts.clone(), buckets))
+        return wrapped_knn(query, verts, buckets, pairs)
+
     try:
         gs.grid_sample_patch_bwd_cuda = spy_bwd
         gs.grid_sample_patch_bwd2_cuda = spy_bwd2
+        knn.nearest_vertex_cuda = spy_knn
         with uncounted():
             for smooth in (False, True):
                 trainer.step += (-trainer.step) % 4 if smooth else \
                     (1 if trainer.step % 4 == 0 else 0)
+                step["smooth"] = smooth
                 trainer.view_step(smpl, item, item, trainer.step % 4)
     finally:
         for name, fn in wrapped.items():
             setattr(gs, name, fn)
-    return {"bwd": bwd, "bwd2": bwd2}
+        knn.nearest_vertex_cuda = wrapped_knn
+    return {"bwd": bwd, "bwd2": bwd2, "knn": nn}
 
 
 def _bwd_work(v, c, h, w, n, need):
@@ -810,9 +975,63 @@ def _library_bwd(g, image, coords, need):
     return lambda: torch.autograd.grad(out, wrt, gl, retain_graph=True)
 
 
+def _bwd2_work(v, c, h, w, n, gg_image, gg_coords, need):
+    """Bytes and operations of one double backward with these upstream
+    gradients and flags (each input the outputs need read once, each
+    output written once)."""
+    need_g, need_i, need_c = need
+    need_i = need_i and gg_coords
+    img_b, pts_b, vcn = 4 * v * h * w * c, 4 * v * n * 2, 4 * v * c * n
+    reads_corners = need_g or need_c
+    nbytes = pts_b + (vcn if need_i or need_c else 0) \
+        + (img_b if gg_coords and reads_corners else 0) \
+        + (img_b if gg_image and reads_corners else 0) \
+        + (pts_b if gg_coords else 0) + (vcn if need_g else 0) \
+        + (img_b if need_i else 0) + (pts_b if need_c else 0)
+    ops = v * c * n * ((7 if gg_image and need_g else 0)
+                       + (17 if gg_coords and need_g else 0)
+                       + (8 if need_i else 0)
+                       + (18 if gg_image and need_c else 0)
+                       + (5 if gg_coords and need_c else 0))
+    return nbytes, ops
+
+
+def _library_bwd2(g, image, coords, gg_image, gg_coords, need):
+    """The yardstick of the double backward: a second ``autograd.grad``
+    over a first one taken with ``create_graph`` through
+    F.grid_sample(padding_mode="border", align_corners=True), with the
+    same upstream gradients and flags (not the same function at the
+    border)."""
+    import torch
+    import torch.nn.functional as F
+
+    img = image.detach().requires_grad_(True)
+    grid = coords.detach()[:, :, None, :].requires_grad_(True)
+    gv = g.detach()[..., None].requires_grad_(need[0])
+    out = F.grid_sample(img, grid, mode="bilinear", padding_mode="border",
+                        align_corners=True)
+    d_img, d_grid = torch.autograd.grad(out, (img, grid), gv,
+                                        create_graph=True)
+    outs, ups = [], []
+    if gg_image is not None:
+        outs.append(d_img)
+        ups.append(gg_image)
+    if gg_coords is not None:
+        outs.append(d_grid)
+        ups.append(gg_coords[:, :, None, :])
+    wrt = [t for t, want in zip((gv, img, grid), need) if want]
+    return lambda: torch.autograd.grad(outs, wrt, ups, retain_graph=True,
+                                       allow_unused=True)
+
+
 LIBRARY_BWD_NOTE = ("autograd of F.grid_sample(padding_mode='border', "
                     "align_corners=True) with the same flags: a yardstick, "
                     "not the same function at the border")
+LIBRARY_BWD2_NOTE = ("a second autograd.grad over a first one taken with "
+                     "create_graph through F.grid_sample(padding_mode="
+                     "'border', align_corners=True), same upstream gradients "
+                     "and flags: a yardstick, not the same function at the "
+                     "border")
 
 
 def k2_times(dev, errs, captured):
@@ -878,17 +1097,33 @@ def k2_times(dev, errs, captured):
                 bwd["coords_only_ms"] = cuda_ms(
                     lambda: gs.grid_sample_patch_bwd_cuda(
                         g, image, coords, False, True), 10)
-            n3 = (True, True, True)
+            n3, n_smooth = (True, True, True), (True, True, False)
+            gg_l = channels_last(gg_i) if which == "latent" else gg_i
+            if which == "rgb":  # the smooth step's RGB flags
+                n_smooth = (True, False, False)
+
+            def bwd2_kernel(gg=gg_l, need=n3):
+                return gs.grid_sample_patch_bwd2_cuda(g, image, coords, gg,
+                                                      gg_c, need)
+
             bwd2 = {
-                "ms": cuda_ms(lambda: gs.grid_sample_patch_bwd2_cuda(
-                    g, image, coords, gg_i, gg_c, n3), 10),
+                "ms": cuda_ms(bwd2_kernel, 10),
+                "device_ms": device_ms(bwd2_kernel, 10),
+                "no_gg_image_ms": cuda_ms(
+                    lambda: bwd2_kernel(None, n_smooth), 10),
+                "no_gg_image_need": list(n_smooth),
                 "plain_ms": cuda_ms(
                     lambda: gs.grid_sample_patch_double_backward_plain(
-                        g, image, coords, gg_i, gg_c, n3), 3),
-                "library_ms": None,
+                        g, image, coords, gg_l, gg_c, n3), 3),
+                "library_ms": maybe_ms(lambda: _library_bwd2(
+                    g, image, coords, gg_l, gg_c, n3), 10),
+                "library_no_gg_image_ms": maybe_ms(lambda: _library_bwd2(
+                    g, image, coords, None, gg_c, n_smooth), 10),
             }
             bwd2["bound_ms"], bwd2["bound_by"] = _bound(
-                2 * vcn + 3 * img_b + 3 * pts_b, v * c * n * 60)
+                *_bwd2_work(v, c, h, w, n, True, True, n3))
+            bwd2["no_gg_image_bound_ms"] = _bound(
+                *_bwd2_work(v, c, h, w, n, False, True, n_smooth))[0]
         other_name = "nchw_ms" if which == "latent" else "channels_last_ms"
         fwd[other_name] = fwd.pop("other_ms")
         for name, rec in (("grid_sample_patch_fwd", fwd),
@@ -903,14 +1138,15 @@ def k2_times(dev, errs, captured):
             lib = rec["library_ms"]
             extra = ", ".join(
                 f"{k} {val:.4f}" for k, val in rec.items()
-                if k.endswith(("_ms", "_us")) and k not in (
-                    "ms", "plain_ms", "library_ms", "bound_ms"))
+                if k.endswith(("_ms", "_us")) and val is not None
+                and k not in ("ms", "plain_ms", "library_ms", "bound_ms"))
             log(f"[7] {name} {which} {tuple(shape)} x {n}: kernel "
                 f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, "
                 f"library {'-' if lib is None else f'{lib:.4f}'} ms, bound "
                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
                 + (f"; {extra}" if extra else ""))
     out["grid_sample_patch_bwd"]["library_note"] = LIBRARY_BWD_NOTE
+    out["grid_sample_patch_bwd2"]["library_note"] = LIBRARY_BWD2_NOTE
 
     sets = {}
     for label, (args, need) in captured["bwd"].items():
@@ -942,7 +1178,7 @@ def k2_times(dev, errs, captured):
         sets[label.replace(" ", "_")] = rec
         log(f"[7] grid_sample_patch_bwd on the {label}'s latent inputs "
             f"{tuple(image.shape)} x {n}, need {need}: kernel "
-            f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}; both outputs "
+            f"{rec['ms']:.4f} ms (device {fmt(rec['device_ms'])}; both outputs "
             f"{rec['both_outputs_ms']:.4f}), "
             f"plain {rec['plain_ms']:.3f} ms, library "
             f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms")
@@ -950,16 +1186,242 @@ def k2_times(dev, errs, captured):
     for label in ("plain_step", "smooth_step"):
         out["grid_sample_patch_bwd"][f"{label}_inputs_ms"] = sets[label]["ms"]
     args = captured["bwd2"]
+    g, image, coords, gg_image, gg_coords, need = args
+    v, c, h, w = image.shape
+    n = coords.shape[1]
+    everything = (*args[:-1], (True, True, True))
     with uncounted():
-        ms = cuda_ms(lambda: gs.grid_sample_patch_bwd2_cuda(*args), 10)
-    out["grid_sample_patch_bwd2"]["smooth_step_inputs_ms"] = ms
+        rec = {
+            "need": list(need),
+            "ms": cuda_ms(lambda: gs.grid_sample_patch_bwd2_cuda(*args), 10),
+            "device_ms": device_ms(
+                lambda: gs.grid_sample_patch_bwd2_cuda(*args), 10),
+            "all_outputs_ms": cuda_ms(
+                lambda: gs.grid_sample_patch_bwd2_cuda(*everything), 10),
+            "plain_ms": cuda_ms(
+                lambda: gs.grid_sample_patch_double_backward_plain(*args), 3),
+            "library_ms": maybe_ms(lambda: _library_bwd2(*args), 10),
+            "shape": [list(image.shape), n],
+        }
+    rec["bound_ms"], rec["bound_by"] = _bound(*_bwd2_work(
+        v, c, h, w, n, gg_image is not None, gg_coords is not None, need))
+    out["grid_sample_patch_bwd2"]["captured"] = {"smooth_step": rec}
+    out["grid_sample_patch_bwd2"]["smooth_step_inputs_ms"] = rec["ms"]
     log(f"[7] grid_sample_patch_bwd2 on the smooth step's latent inputs "
-        f"{tuple(args[1].shape)} x {args[2].shape[1]}: {ms:.4f} ms")
+        f"{tuple(image.shape)} x {n}, need {need}: kernel {rec['ms']:.4f} ms "
+        f"(device {fmt(rec['device_ms'])}; all outputs "
+        f"{rec['all_outputs_ms']:.4f}), plain {rec['plain_ms']:.3f} ms, "
+        f"library {rec['library_ms']} ms, bound {rec['bound_ms']:.4f} ms")
     return out
 
 
-def main():
+def knn_times(sets, clock_mhz, per_pair):
+    """K1 at each shape the path launches (and random order, and the
+    streamed path): the kernel with its buckets built beforehand (as the
+    path passes them), the bucket build, the bound, the pairs evaluated
+    with the time the card's issue rate needs for them and for every pair,
+    ``cdist`` + ``min`` and, below 1M queries, the plain version.  Returns
+    {label: record}."""
     import torch
+
+    from mpsnerf_torch.ops import knn
+
+    rate = FP32_LANES * clock_mhz * 1e6  # fp32 instructions a second
+    out = {}
+    for label, (q, v, b) in sets.items():
+        n, nv = q.shape[0], v.shape[0]
+        if b is None:
+            b = knn.build_vertex_buckets(v)
+        with uncounted():
+            rec = {
+                "shape": [n, nv],
+                "ms": cuda_ms(lambda: knn.nearest_vertex_cuda(q, v, b), 20),
+                "device_ms": device_ms(
+                    lambda: knn.nearest_vertex_cuda(q, v, b), 10),
+                "host_us": host_us(lambda: knn.nearest_vertex_cuda(q, v, b),
+                                   50),
+                "build_ms": cuda_ms(lambda: knn.build_vertex_buckets(v), 10),
+                "pairs": knn_pairs(q, v, b),
+                "library_ms": cuda_ms(lambda: knn_library(q, v), 2),
+            }
+            if n < 1_000_000:
+                rec["plain_ms"] = cuda_ms(lambda: knn.nearest_vertex_plain(
+                    q, v, block_elems=1 << 26), 2)
+        bytes_ms = (n * 12 + nv * 12 + n * 8 + n * 4) / HBM_BYTES_S * 1e3
+        # the bound: what any exact 1-NN of these queries must do, whatever
+        # its design: read each query and vertex once, write each result
+        # once, and evaluate at least one pair (its answer) per query
+        ops_ms = n * per_pair / rate * 1e3
+        rec["bound_ms"] = max(bytes_ms, ops_ms)
+        rec["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        # beside it, not the bound: the same rate on the pairs this design
+        # evaluated, and on every pair (brute force)
+        rec["pairs_bound_ms"] = max(
+            bytes_ms, rec["pairs"] * per_pair / rate * 1e3)
+        rec["brute_force_bound_ms"] = max(
+            bytes_ms, n * nv * per_pair / rate * 1e3)
+        rec["pairs_share"] = rec["pairs"] / max(1, n * nv)
+        out[label.replace(" ", "_")] = rec
+        log(f"[7] knn {label} {n} x {nv}: kernel {rec['ms']:.4f} ms (device "
+            f"{fmt(rec['device_ms'])}; host {rec['host_us']:.1f} us a call; "
+            f"bucket build {rec['build_ms']:.3f}), bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); pairs "
+            f"{rec['pairs']} ({100 * rec['pairs_share']:.2f} %) at "
+            f"{rec['pairs_bound_ms']:.4f} ms, brute force at "
+            f"{rec['brute_force_bound_ms']:.4f} ms; cdist+min "
+            f"{rec['library_ms']:.3f} ms"
+            + (f", plain {rec['plain_ms']:.3f} ms" if "plain_ms" in rec
+               else ""))
+    return out
+
+
+def maybe_ms(make, reps):
+    """``cuda_ms`` of the call ``make()`` returns, or None (logged) where
+    PyTorch has no such call (a yardstick only)."""
+    try:
+        return cuda_ms(make(), reps)
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"[7] library call unavailable: {str(e).splitlines()[0][:160]}")
+        return None
+
+
+def buckets_record(v, train_launches, serving_launches, clock_mhz):
+    """The bucket build's line of phase 7, on the posed rig: kernel, plain
+    version and the card's bound (each vertex read once, the table and
+    boxes written once; the bitonic sort's compare-exchanges, ~4
+    instructions each, over the card's issue rate).  No PyTorch call
+    builds the same table."""
+    from mpsnerf_torch.ops import knn
+
+    nv = v.shape[0]
+    nb = -(-nv // knn.BUCKET)
+    p2 = 1 << (nv - 1).bit_length()
+    stages = p2.bit_length() * (p2.bit_length() - 1) // 2
+    with uncounted():
+        rec = {
+            "name": "vertex_buckets", "route": "cuda", "source": KNN_SOURCE,
+            "replaces": BUCKETS_REPLACES,
+            "launches": train_launches["vertex_buckets"],
+            "launches_serving": serving_launches["vertex_buckets"],
+            "shape": [nv], "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: knn.build_vertex_buckets_cuda(v), 20),
+            "device_ms": device_ms(lambda: knn.build_vertex_buckets_cuda(v),
+                                   10),
+            "host_us": host_us(lambda: knn.build_vertex_buckets_cuda(v), 50),
+            "plain_ms": cuda_ms(lambda: knn.build_vertex_buckets_plain(v), 10),
+            "library_ms": None,
+        }
+    bytes_ms = (nv * 12 + nb * knn.BUCKET * 16 + nb * 32) / HBM_BYTES_S * 1e3
+    ops_ms = p2 // 2 * stages * 4 / (FP32_LANES * clock_mhz * 1e6) * 1e3
+    rec["bound_ms"] = max(bytes_ms, ops_ms)
+    rec["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    log(f"[7] bucket build {nv} vertices: kernel {rec['ms']:.4f} ms (device "
+        f"{fmt(rec['device_ms'])}, host {rec['host_us']:.1f} us), plain "
+        f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.6f} ms "
+        f"({rec['bound_by']})")
+    return rec
+
+
+def knn_library(q, v):
+    """``torch.cdist`` + ``min`` in blocks of 65,536 queries (the
+    yardstick; the port never calls it)."""
+    import torch
+
+    for s in range(0, q.shape[0], 65536):
+        torch.cdist(q[s:s + 65536], v).min(dim=1)
+
+
+KNN_GOALS_MS = {"tail_tile": 0.05, "fine_prepass": 3.0, "train_mask": 0.12,
+                "train_canonical": 0.12}
+
+
+def sass_blocks(name):
+    """The SASS of each kernel in the built library of ``csrc/<name>.cu``
+    (``cuobjdump -sass``) as its basic blocks, each a Counter of opcodes
+    (a block ends at a label and after a branch)."""
+    import collections
+    import os
+    import re
+
+    from mpsnerf_torch import cuda_build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(cuda_build._target(name))],
+                          capture_output=True, text=True, check=True).stdout
+    out, blocks = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            blocks = out[m.group(1)] = [collections.Counter()]
+            continue
+        if blocks is None:
+            continue
+        if re.match(r"\s*\.L_\w+:", line):
+            blocks.append(collections.Counter())
+            continue
+        m = re.match(
+            r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+            line)
+        if m:
+            op = m.group(2).split(".")[0]
+            blocks[-1][op] += 1
+            if op in ("BRA", "BRX", "JMP", "EXIT", "RET", "CALL", "BREAK"):
+                blocks.append(collections.Counter())
+    return out
+
+
+def visit_loop_instructions(blocks, kernel, expected):
+    """Arithmetic instructions per query-vertex pair in the pair loop of
+    every instance of ``kernel``: its basic block with the most FMUL (the
+    unrolled loop; 3 FMUL a pair), the PAIR_OPCODES in it over its pairs.
+    Returns (the fewest over the instances, whether every instance is
+    within one instruction of ``expected``, log text)."""
+    counts, text = [], []
+    for fn, bbs in blocks.items():
+        if kernel not in fn:
+            continue
+        body = max(bbs, key=lambda c: c["FMUL"])
+        pairs = body["FMUL"] / 3
+        counts.append(sum(body[op] for op in PAIR_OPCODES) / max(pairs, 1))
+        instance = fn[fn.index(kernel) + len(kernel):][:6]  # e.g. ILi4EE
+        text.append(f"{instance}: {counts[-1]:.3f} a pair over {pairs:g} "
+                    "pairs (" + ", ".join(f"{op} {body[op]}" for op in
+                                          PAIR_OPCODES if body[op]) + ")")
+    ok = bool(counts) and all(abs(c - expected) < 1 for c in counts)
+    return (min(counts) if counts else None), ok, "; ".join(text)
+
+
+def card_clock_mhz():
+    """The card's maximum SM clock (MHz) from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0].split()[0])
+
+
+def streamed_table(verts, seed):
+    """A table of STREAMED_VERTS vertices (too large for the kernel's
+    shared-memory copy): the rig and jittered copies of it."""
+    import torch
+
+    g = torch.Generator(device=verts.device).manual_seed(seed)
+    reps = -(-STREAMED_VERTS // verts.shape[0])
+    more = [verts + 0.01 * torch.randn(verts.shape, generator=g,
+                                       device=verts.device)
+            for _ in range(reps - 1)]
+    return torch.cat([verts] + more)[:STREAMED_VERTS].contiguous()
+
+
+def main(argv=None):
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--stop-after", type=int, default=8,
+                    help="end after this phase (no result lines)")
+    stop_after = ap.parse_args(argv).stop_after
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -986,6 +1448,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
+    clock_mhz = card_clock_mhz()
     t0 = time.perf_counter()
     sources = ("nearest_vertex", "nearest_vertex_packed", "grid_sample_patch")
     cuda_build.build_kernels(sources)
@@ -996,8 +1459,24 @@ def main():
             if "registers" in line)
         log(f"[1] {name}.cu: {ptxas or 'cached'}")
     log(f"[1] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}: built {len(sources)} sources in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"CUDA {torch.version.cuda}, max SM clock {clock_mhz:.0f} MHz: built "
+        f"{len(sources)} sources in {time.perf_counter() - t0:.1f} s")
+    instr = {}  # instructions a pair, counted: the bounds use these
+    for name, kernel, expected in (
+            ("nearest_vertex", "nearest_vertex_kernel", K1_INSTR_PER_PAIR),
+            ("nearest_vertex_packed", "nearest_vertex_packed_kernel",
+             PACKED_INSTR_PER_PAIR)):
+        blocks = sass_blocks(name)
+        for fn, bbs in blocks.items():
+            counts = sum(bbs, collections.Counter())
+            log(f"[1] SASS {fn[:60]}: {sum(counts.values())} instructions; "
+                + ", ".join(f"{op} {k}" for op, k in counts.most_common(14)))
+        instr[name], ok, text = visit_loop_instructions(blocks, kernel,
+                                                        expected)
+        log(f"[1] {kernel} pair loop: {text}; {expected} expected: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            return 1
 
     # ---- the full-width scene (host), needed for phase 2's second shape
     n_samples, tile = 128, 16384
@@ -1015,15 +1494,34 @@ def main():
     base = item["vertices"][rng.integers(0, 6890, 131072)]
     q = torch.from_numpy((base + rng.normal(size=base.shape) * 0.05)
                          .astype(np.float32)).to(dev)
-    compare_knn(q, verts)
+    for label, v in (("rig", verts), ("1 vertex", verts[:1]),
+                     ("31 vertices", verts[:31]), ("33 vertices", verts[:33]),
+                     ("jittered rig (scratch sort)",
+                      streamed_table(verts, 1))):
+        compare_buckets(label, v.contiguous())
+    knn_err, _ = compare_knn("near the vertices", q, verts)
     packed_err = compare_packed(q, verts)
     attach_body_grid(item)
     tp = to_device_input(item, dev)
     fine_q, fine_v = fine_prepass_inputs(
         smpl, tp, view_rays(item, 1, dev)[0], n_samples, tile)
-    max_err = compare_knn(fine_q, fine_v)
+    compare_buckets("posed rig (fine pre-pass)", fine_v)
+    fine_b = knn.build_vertex_buckets(fine_v)
+    perm = torch.randperm(fine_q.shape[0],
+                          generator=torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    knn_sets = {"fine prepass": (fine_q, fine_v, fine_b),
+                "random order": (fine_q[perm].contiguous(), fine_v, fine_b)}
+    big_v = streamed_table(verts, 1)
+    knn_sets["streamed"] = (q, big_v, knn.build_vertex_buckets(big_v))
+    for label, (kq, kv, kb) in knn_sets.items():
+        knn_err = max(knn_err, compare_knn(label, kq, kv, kb)[0])
     k2_errs = {which: compare_k2(which, shape, dev)
                for which, shape in TRAIN_SHAPES.items()}
+    if stop_after <= 2:
+        log(f"[2] stopping after phase 2 ({time.perf_counter() - t_start:.0f}"
+            " s)")
+        return 0
 
     # ---- 3. CUDA against CPU at 64^2: serving render, then training
     small = SyntheticHumanDataset(n_poses=1, n_cameras=4, image_size=64,
@@ -1051,6 +1549,8 @@ def main():
     if not ok:
         return 1
     compare_training(dev)
+    if stop_after <= 3:
+        return 0
 
     # ---- 4. serving at full width, 3 requests
     model = seeded_model(dev)
@@ -1102,15 +1602,25 @@ def main():
         f"{'ok' if copies == 0 else 'FAIL'}")
     if copies:
         return 1
-    breakdown(renderer, smpl, item, 1, view_ms[0])
+    view_launches = breakdown(renderer, smpl, item, 1, view_ms[0])
+    log(f"[4] launches per served view (view 1): K1 {launches[0]}, bucket "
+        f"builds {serving_launches['vertex_buckets'] // 3}, all kernels "
+        f"{view_launches}")
+    tail_sets, n_tiles = capture_view_knn(renderer, item, 1)
+    log(f"[4] captured K1's inputs of view 1: the fine pre-pass and tail "
+        f"tile {n_tiles // 2} of {n_tiles}")
     del renderer, model
     torch.cuda.empty_cache()
 
     # ---- 5. training at full width
     train_launches, _, captured = train_full_width(dev)
-    # phase 2 on the inputs phase 5 captured
+    captured["knn"] = {**tail_sets, **captured["knn"]}
+    # phase 2 on the inputs phases 4 and 5 captured
     for name, e in compare_captured(captured).items():
-        k2_errs["latent"][name] = max(k2_errs["latent"][name], e)
+        if name == "nearest_vertex":
+            knn_err = max(knn_err, e)
+        else:
+            k2_errs["latent"][name] = max(k2_errs["latent"][name], e)
 
     # ---- 6. the variant probe
     reset_counts()
@@ -1124,42 +1634,51 @@ def main():
         return 1
 
     # ---- 7. kernel times against their bounds
-    n, nv = fine_q.shape[0], fine_v.shape[0]
+    knn_sets = {"fine prepass": knn_sets["fine prepass"],
+                **captured["knn"],
+                "random order": knn_sets["random order"],
+                "streamed": knn_sets["streamed"]}
+    shapes = knn_times(knn_sets, clock_mhz, instr["nearest_vertex"])
+    for label, goal in KNN_GOALS_MS.items():
+        ms = shapes[label]["ms"]
+        log(f"[7] knn goal {label} <= {goal} ms: {ms:.4f} ms, "
+            f"{'met' if ms <= goal else 'missed'}")
+    fine = shapes["fine_prepass"]
     with uncounted():
-        ms = cuda_ms(lambda: knn.nearest_vertex_cuda(fine_q, fine_v), 10)
-        plain_ms = cuda_ms(
-            lambda: knn.nearest_vertex_plain(fine_q, fine_v,
-                                             block_elems=1 << 26), 2)
-
-        def library(qq, vv):
-            for s in range(0, qq.shape[0], 65536):
-                torch.cdist(qq[s:s + 65536], vv).min(dim=1)
-
-        library_ms = cuda_ms(lambda: library(fine_q, fine_v), 2)
+        fine["plain_ms"] = cuda_ms(lambda: knn.nearest_vertex_plain(
+            fine_q, fine_v, block_elems=1 << 26), 2)
         pq, pv = (torch.rand(2_572_288, 3, generator=torch.Generator(
             device=dev).manual_seed(0), device=dev) * 2.4 - 1.2,
             fine_v)
-        packed_library_ms = cuda_ms(lambda: library(pq, pv), 2)
-    ops_ms = n * nv * OPS_PER_PAIR / FLOPS_FP32 * 1e3
-    bytes_ms = (n * 12 + nv * 12 + n * 8 + n * 4) / HBM_BYTES_S * 1e3
+        packed_library_ms = cuda_ms(lambda: knn_library(pq, pv), 2)
     records = [{
         "name": "nearest_vertex", "route": "cuda", "source": KNN_SOURCE,
         "replaces": KNN_REPLACES,
         "launches": train_launches["nearest_vertex"],
         "launches_serving": serving_launches["nearest_vertex"],
-        "launches_per_view": launches, "shape": [n, nv],
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": library_ms,
+        "launches_per_view": launches, "shape": fine["shape"],
+        "max_abs_err": knn_err, "ms": fine["ms"], "plain_ms": fine["plain_ms"],
+        "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"],
+        "pairs_bound_ms": fine["pairs_bound_ms"],
+        "brute_force_bound_ms": fine["brute_force_bound_ms"],
+        "pairs": fine["pairs"], "library_ms": fine["library_ms"],
+        "instructions_per_pair": instr["nearest_vertex"],
+        "clock_mhz": clock_mhz,
+        "shapes": shapes,
     }]
-    log(f"[7] knn at the fine pre-pass shape {n} x {nv}: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.1f} ms, cdist+min {library_ms:.1f} ms, bound "
-        f"{records[0]['bound_ms']:.3f} ms")
+    log(f"[7] knn at the fine pre-pass shape {fine['shape']}: kernel "
+        f"{fine['ms']:.3f} ms, plain {fine['plain_ms']:.1f} ms, cdist+min "
+        f"{fine['library_ms']:.1f} ms, bound {fine['bound_ms']:.4f} ms "
+        f"({fine['bound_by']}); its {fine['pairs']} pairs at "
+        f"{fine['pairs_bound_ms']:.3f} ms, brute force at "
+        f"{fine['brute_force_bound_ms']:.3f} ms")
+    records.append(buckets_record(fine_v, train_launches, serving_launches,
+                                  clock_mhz))
     pn, pnv = probe["shape"]
     default = probe["variants"]["qpt4_tile1152"]
     best = min(probe["variants"].items(), key=lambda kv: kv[1]["ms"])
-    p_ops = pn * pnv * OPS_PER_PAIR / FLOPS_FP32 * 1e3
+    rate = FP32_LANES * clock_mhz * 1e6
+    p_ops = pn * pnv * instr["nearest_vertex_packed"] / rate * 1e3
     p_bytes = (pn * 12 + pnv * 12 + pn * 8 + pn * 4) / HBM_BYTES_S * 1e3
     records.append({
         "name": "nearest_vertex_packed", "route": "cuda",
@@ -1170,8 +1689,12 @@ def main():
         "best_variant": best[0], "best_ms": best[1]["ms"],
         "plain_ms": probe["plain_ms"], "bound_ms": max(p_ops, p_bytes),
         "bound_by": "operations" if p_ops >= p_bytes else "bytes",
+        "instructions_per_pair": instr["nearest_vertex_packed"],
         "library_ms": packed_library_ms, "k1_ms_same_shape": probe["k1_ms"],
     })
+    log(f"[7] packed knn {pn} x {pnv}: {default['ms']:.3f} ms, bound "
+        f"{records[-1]['bound_ms']:.3f} ms ({instr['nearest_vertex_packed']} "
+        f"instructions a pair); K1 on the same inputs {probe['k1_ms']:.3f} ms")
     for name, rec in k2_times(dev, k2_errs, captured).items():
         records.append({
             "name": name, "route": "cuda", "source": GS_SOURCE,

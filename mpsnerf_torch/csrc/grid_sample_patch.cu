@@ -80,10 +80,20 @@
 //   loops over C, as F.grid_sample does, reading the image where it lies
 //   and, in the backward, adding the image gradient with scalar atomics.
 //
-// The double backward keeps its first design: one thread per point, a loop
-// over C, 4 atomics per channel and point for dI; only its reads go
-// through strides.  The forward rounds as the plain version does (_rn
-// intrinsics), so it is bit-identical to it.
+// The double backward follows the backward's two designs.  Channel tiles
+// (the latent, and a gg image, if any, in the same layout): a block takes
+// a 64-point tile of one view and stages its g rows in shared memory; dI
+// uses the backward's per-tile pixel sort, with the entry weight
+// tx w_x,k + ty w_y,k in place of w_k, so each distinct pixel's sum is one
+// float4 atomic per lane; a warp per point reads the 4 corners of I (and of
+// ggI) coalesced, writes that point's dg row whole (dg is (V, N, C)
+// memory, returned as a (V, C, N) view, as the forward's output is, so the
+// consumer reads it without a copy), and reduces dcrd's ex, ey and mixed
+// term M over channels with warp shuffles.  Only the outputs given a
+// pointer are computed: the wrapper asks the autograd engine which ones
+// the running backward reads.  Points (the RGB): one thread per point, a
+// loop over C, scalar atomics for dI.  The forward rounds as the plain
+// version does (_rn intrinsics), so it is bit-identical to it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -275,6 +285,114 @@ grid_sample_fwd_point(const float* __restrict__ img,
 
 // ---- backward -------------------------------------------------------------
 
+// The tile's image-gradient entries: entry e = 4 p + k is corner k of point
+// p, keyed (pixel << 32 | e) with weight wts[e]; points past the tile sort
+// last.  Sorts the keys (bitonic, one entry a thread: runs of one pixel
+// become contiguous, in entry order within a run) and writes the first
+// entry of each pixel's run to heads[], with heads[nheads] = 4 npts.
+// Called by every thread of the block after keys[] and wts[] are written
+// (it synchronises first); returns nheads.
+__device__ int sort_tile(unsigned long long* keys, int* heads,
+                         int* warp_heads, int npts) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  __syncthreads();
+  for (int k = 2; k <= kEntries; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const int l = t ^ j;
+      if (l > t) {
+        const unsigned long long a = keys[t], b = keys[l];
+        if ((a > b) == ((t & k) == 0)) {
+          keys[t] = b;
+          keys[l] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const unsigned pix = static_cast<unsigned>(keys[t] >> 32);
+  const bool head =
+      pix != kNoPixel &&
+      (t == 0 || static_cast<unsigned>(keys[t - 1] >> 32) != pix);
+  const unsigned ballot = __ballot_sync(0xffffffffu, head);
+  if (lane == 0) warp_heads[warp] = __popc(ballot);
+  __syncthreads();
+  int before = 0, nheads = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? warp_heads[w] : 0;
+    nheads += warp_heads[w];
+  }
+  if (head) heads[before + __popc(ballot & ((1u << lane) - 1u))] = t;
+  if (t == 0) heads[nheads] = 4 * npts;
+  return nheads;
+}
+
+// Corner k of tile point t (t < npts) as an entry: its pixel and weight.
+__device__ __forceinline__ void set_entry(unsigned long long* keys,
+                                          float* wts, int e, int64_t pixel,
+                                          float w) {
+  keys[e] = (static_cast<unsigned long long>(pixel) << 32) |
+            static_cast<unsigned>(e);
+  wts[e] = w;
+}
+
+__device__ __forceinline__ void set_no_entries(unsigned long long* keys,
+                                               float* wts, int t) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    keys[4 * t + j] = (static_cast<unsigned long long>(kNoPixel) << 32) |
+                      static_cast<unsigned>(4 * t + j);
+    wts[4 * t + j] = 0.f;
+  }
+}
+
+// One warp per distinct pixel sums wts[e] * g row over the pixel's run and
+// adds the sum with one float4 atomic per lane; dv is the view's dI at
+// channel c0, gt the tile's staged g rows of this chunk of cc channels.
+__device__ void scatter_runs(const unsigned long long* keys, const float* wts,
+                             const int* heads, int nheads, const float* gt,
+                             float* dv, int C, int cc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int h = warp; h < nheads; h += kWarps) {
+    const int e0 = heads[h], e1 = heads[h + 1];
+    float* dst = dv + static_cast<int64_t>(keys[e0] >> 32) * C;
+    for (int c = 4 * lane; c < cc; c += 4 * 32) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = e0; q < e1; ++q) {
+        const int e = static_cast<int>(keys[q] & 0xffffffffu);
+        const float w = wts[e];
+        const float4 gq =
+            *reinterpret_cast<const float4*>(gt + (e >> 2) * kRow + c);
+        acc.x = fmaf(w, gq.x, acc.x);
+        acc.y = fmaf(w, gq.y, acc.y);
+        acc.z = fmaf(w, gq.z, acc.z);
+        acc.w = fmaf(w, gq.w, acc.w);
+      }
+      atomicAdd(reinterpret_cast<float4*>(dst + c), acc);
+    }
+  }
+}
+
+// Stages the tile's g rows of channels [c0, c0 + cc) in gt (kRow floats a
+// point), coalesced along whichever of C or N is contiguous (a (V, C, N)
+// g is transposed here).  gv is g at (view, first point of the tile).
+__device__ void stage_g(const float* gv, const GStrides& gs, float* gt,
+                        int c0, int cc, int npts) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (gs.c == 1) {  // channels contiguous: a warp reads a point's row
+    for (int p = warp; p < kTile; p += kWarps) {
+      for (int c = lane; c < cc; c += 32) {
+        gt[p * kRow + c] = p < npts ? gv[p * gs.n + c0 + c] : 0.f;
+      }
+    }
+  } else {  // a warp reads a channel along n
+    for (int c = warp; c < cc; c += kWarps) {
+      for (int p = lane; p < kTile; p += 32) {
+        gt[p * kRow + c] = p < npts ? gv[(c0 + c) * gs.c + p * gs.n] : 0.f;
+      }
+    }
+  }
+}
+
 // Channel tiles: a block per (tile of kTile points, view); see the header.
 __global__ void __launch_bounds__(kThreads)
 grid_sample_bwd_tile(const float* __restrict__ g,
@@ -298,57 +416,16 @@ grid_sample_bwd_tile(const float* __restrict__ g,
 
   int nheads = 0;
   if (dimg) {
-    // entry e = 4 p + k is corner k of point p; points past N sort last
-    if (t < kTile) {
-      if (t < npts) {
-        const Corners k = corners(position(cv[2 * t], W),
-                                  position(cv[2 * t + 1], H), H, W);
+    if (t < npts) {
+      const Corners k = corners(position(cv[2 * t], W),
+                                position(cv[2 * t + 1], H), H, W);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          keys[4 * t + j] =
-              (static_cast<unsigned long long>(k.pixel(j, W)) << 32) |
-              static_cast<unsigned>(4 * t + j);
-          wts[4 * t + j] = k.w[j];
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          keys[4 * t + j] = (static_cast<unsigned long long>(kNoPixel) << 32) |
-                            static_cast<unsigned>(4 * t + j);
-          wts[4 * t + j] = 0.f;
-        }
-      }
+      for (int j = 0; j < 4; ++j)
+        set_entry(keys, wts, 4 * t + j, k.pixel(j, W), k.w[j]);
+    } else if (t < kTile) {
+      set_no_entries(keys, wts, t);
     }
-    __syncthreads();
-    // bitonic sort, one entry a thread: runs of one pixel become
-    // contiguous, in entry order within a run
-    for (int k = 2; k <= kEntries; k <<= 1) {
-      for (int j = k >> 1; j > 0; j >>= 1) {
-        const int l = t ^ j;
-        if (l > t) {
-          const unsigned long long a = keys[t], b = keys[l];
-          if ((a > b) == ((t & k) == 0)) {
-            keys[t] = b;
-            keys[l] = a;
-          }
-        }
-        __syncthreads();
-      }
-    }
-    const unsigned pix = static_cast<unsigned>(keys[t] >> 32);
-    const bool head =
-        pix != kNoPixel &&
-        (t == 0 || static_cast<unsigned>(keys[t - 1] >> 32) != pix);
-    const unsigned ballot = __ballot_sync(0xffffffffu, head);
-    if (lane == 0) warp_heads[warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      before += w < warp ? warp_heads[w] : 0;
-      nheads += warp_heads[w];
-    }
-    if (head) heads[before + __popc(ballot & ((1u << lane) - 1u))] = t;
-    if (t == 0) heads[nheads] = 4 * npts;
+    nheads = sort_tile(keys, heads, warp_heads, npts);
   }
   if (dcrd && t < kTile) {
     ex_s[t] = 0.f;
@@ -359,40 +436,11 @@ grid_sample_bwd_tile(const float* __restrict__ g,
   for (int c0 = 0; c0 < C; c0 += kChunk) {
     const int cc = min(kChunk, C - c0);
     __syncthreads();  // the previous chunk's readers are done
-    if (gs.c == 1) {  // channels contiguous: a warp reads a point's row
-      for (int p = warp; p < kTile; p += kWarps) {
-        for (int c = lane; c < cc; c += 32) {
-          gt[p * kRow + c] = p < npts ? gv[p * gs.n + c0 + c] : 0.f;
-        }
-      }
-    } else {  // a warp reads a channel along n: transposed here
-      for (int c = warp; c < cc; c += kWarps) {
-        for (int p = lane; p < kTile; p += 32) {
-          gt[p * kRow + c] = p < npts ? gv[(c0 + c) * gs.c + p * gs.n] : 0.f;
-        }
-      }
-    }
+    stage_g(gv, gs, gt, c0, cc, npts);
     __syncthreads();
     if (dimg) {
-      float* dv = dimg + static_cast<int64_t>(v) * H * W * C + c0;
-      for (int h = warp; h < nheads; h += kWarps) {
-        const int e0 = heads[h], e1 = heads[h + 1];
-        float* dst = dv + static_cast<int64_t>(keys[e0] >> 32) * C;
-        for (int c = 4 * lane; c < cc; c += 4 * 32) {
-          float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-          for (int q = e0; q < e1; ++q) {
-            const int e = static_cast<int>(keys[q] & 0xffffffffu);
-            const float w = wts[e];
-            const float4 gq =
-                *reinterpret_cast<const float4*>(gt + (e >> 2) * kRow + c);
-            acc.x = fmaf(w, gq.x, acc.x);
-            acc.y = fmaf(w, gq.y, acc.y);
-            acc.z = fmaf(w, gq.z, acc.z);
-            acc.w = fmaf(w, gq.w, acc.w);
-          }
-          atomicAdd(reinterpret_cast<float4*>(dst + c), acc);
-        }
-      }
+      scatter_runs(keys, wts, heads, nheads, gt,
+                   dimg + static_cast<int64_t>(v) * H * W * C + c0, C, cc);
     }
     if (dcrd) {
       const float* iv = img + v * s.v + c0;
@@ -473,78 +521,213 @@ grid_sample_bwd_point(const float* __restrict__ g,
 
 // ---- double backward ------------------------------------------------------
 
+// sum_k u_k a_k per channel of a float4 group
+__device__ __forceinline__ float4 mix4(const float4* a, const float* u) {
+  float4 r;
+  r.x = ((u[0] * a[0].x + u[1] * a[1].x) + u[2] * a[2].x) + u[3] * a[3].x;
+  r.y = ((u[0] * a[0].y + u[1] * a[1].y) + u[2] * a[2].y) + u[3] * a[3].y;
+  r.z = ((u[0] * a[0].z + u[1] * a[1].z) + u[2] * a[2].z) + u[3] * a[3].z;
+  r.w = ((u[0] * a[0].w + u[1] * a[1].w) + u[2] * a[2].w) + u[3] * a[3].w;
+  return r;
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
+  return ((a.x * b.x + a.y * b.y) + a.z * b.z) + a.w * b.w;
+}
+
+// Channel tiles: a block per (tile of kTile points, view); see the header.
+// ggimg (strides ts) and ggcrd may be null; so may each output.
 __global__ void __launch_bounds__(kThreads)
-grid_sample_patch_bwd2_kernel(const float* __restrict__ g,
-                              const float* __restrict__ img,
-                              const float* __restrict__ crd,
-                              const float* __restrict__ ggimg,
-                              const float* __restrict__ ggcrd,
-                              float* __restrict__ dg, float* __restrict__ dimg,
-                              float* __restrict__ dcrd, int V, int C, int H,
-                              int W, int64_t N, GStrides gs, Strides s,
-                              Strides ts) {
-  const int64_t total = static_cast<int64_t>(V) * N;
-  const int64_t hwc = static_cast<int64_t>(H) * W * C;
+grid_sample_bwd2_tile(const float* __restrict__ g,
+                      const float* __restrict__ img,
+                      const float* __restrict__ crd,
+                      const float* __restrict__ ggimg,
+                      const float* __restrict__ ggcrd,
+                      float* __restrict__ dg, float* __restrict__ dimg,
+                      float* __restrict__ dcrd, int C, int H, int W,
+                      int64_t N, GStrides gs, Strides s, Strides ts) {
+  __shared__ __align__(16) float gt[kTile * kRow];
+  __shared__ unsigned long long keys[kEntries];
+  __shared__ float wts[kEntries];  // tx w_x,k + ty w_y,k of each entry
+  __shared__ int heads[kEntries + 1];
+  __shared__ int warp_heads[kWarps];
+  __shared__ float ex_s[kTile], ey_s[kTile], m_s[kTile];
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int v = blockIdx.y;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int npts = static_cast<int>(min(static_cast<int64_t>(kTile), N - n0));
+  const int64_t first = static_cast<int64_t>(v) * N + n0;  // flat point
+  const float* cv = crd + first * 2;
+  const float* tv = ggcrd ? ggcrd + first * 2 : nullptr;
   const float sx = 0.5f * (W - 1), sy = 0.5f * (H - 1);
-  for (int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       t < total; t += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const int64_t n = t % N;
-    const int v = static_cast<int>(t / N);
-    const Corners k = corners(position(crd[2 * t], W),
-                              position(crd[2 * t + 1], H), H, W);
-    const float* I = img + v * s.v;
-    const float* GG = ggimg ? ggimg + v * ts.v : nullptr;
-    float* D = dimg ? dimg + v * hwc : nullptr;
-    const float* gp = g + v * gs.v + n * gs.n;
-    const int64_t gbase = static_cast<int64_t>(v) * C * N + n;
-    const float tx = ggcrd ? ggcrd[2 * t] * sx : 0.f;
-    const float ty = ggcrd ? ggcrd[2 * t + 1] * sy : 0.f;
-    float ex = 0.f, ey = 0.f, mixed = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float gc = gp[c * gs.c];
-      float i[4];
+
+  int nheads = 0;
+  if (dimg) {  // the wrapper passes dimg only with ggcrd
+    if (t < npts) {
+      const Corners k = corners(position(cv[2 * t], W),
+                                position(cv[2 * t + 1], H), H, W);
+      const float tx = tv[2 * t] * sx, ty = tv[2 * t + 1] * sy;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) i[j] = I[k.at(s, j) + c * s.c];
-      float dgc = 0.f;
-      if (GG) {
-        float sw = 0.f, sxk = 0.f, syk = 0.f;
+      for (int j = 0; j < 4; ++j)
+        set_entry(keys, wts, 4 * t + j, k.pixel(j, W),
+                  tx * k.dx[j] + ty * k.dy[j]);
+    } else if (t < kTile) {
+      set_no_entries(keys, wts, t);
+    }
+    nheads = sort_tile(keys, heads, warp_heads, npts);
+  }
+  if (dcrd && t < kTile) {
+    ex_s[t] = 0.f;
+    ey_s[t] = 0.f;
+    m_s[t] = 0.f;
+  }
+
+  const float* gv = g + v * gs.v + n0 * gs.n;
+  const bool need_g_rows = dimg || dcrd;
+  for (int c0 = 0; c0 < C; c0 += kChunk) {
+    const int cc = min(kChunk, C - c0);
+    if (need_g_rows) {
+      __syncthreads();
+      stage_g(gv, gs, gt, c0, cc, npts);
+      __syncthreads();
+    }
+    if (dimg) {
+      scatter_runs(keys, wts, heads, nheads, gt,
+                   dimg + static_cast<int64_t>(v) * H * W * C + c0, C, cc);
+    }
+    if (!(dg || dcrd)) continue;
+    const float* iv = img + v * s.v + c0;
+    const float* gg = ggimg ? ggimg + v * ts.v + c0 : nullptr;
+    for (int p = warp; p < npts; p += kWarps) {
+      const Corners k = corners(position(cv[2 * p], W),
+                                position(cv[2 * p + 1], H), H, W);
+      const float tx = tv ? tv[2 * p] * sx : 0.f;
+      const float ty = tv ? tv[2 * p + 1] * sy : 0.f;
+      float ex = 0.f, ey = 0.f, m = 0.f;
+      for (int c = 4 * lane; c < cc; c += 4 * 32) {
+        float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 gq = d;
+        if (dcrd) gq = *reinterpret_cast<const float4*>(gt + p * kRow + c);
+        if (gg) {
+          float4 a[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float q = GG[k.at(ts, j) + c * ts.c];
-          sw += k.w[j] * q;
-          sxk += k.dx[j] * q;
-          syk += k.dy[j] * q;
-        }
-        dgc += sw;
-        ex += gc * sxk;
-        ey += gc * syk;
-      }
-      if (ggcrd) {
-        float sxk = 0.f, syk = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sxk += k.dx[j] * i[j];
-          syk += k.dy[j] * i[j];
-          if (D) {
-            atomicAdd(D + k.pixel(j, W) * C + c,
-                      gc * (tx * k.dx[j] + ty * k.dy[j]));
+          for (int j = 0; j < 4; ++j) a[j] = load4(gg + k.at(ts, j) + c);
+          d = mix4(a, k.w);
+          if (dcrd) {
+            ex += dot4(gq, mix4(a, k.dx));
+            ey += dot4(gq, mix4(a, k.dy));
           }
         }
-        dgc += tx * sxk + ty * syk;
-        mixed += gc * (((i[0] - i[1]) - i[2]) + i[3]);
+        if (tv) {
+          float4 a[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) a[j] = load4(iv + k.at(s, j) + c);
+          const float4 ax = mix4(a, k.dx), ay = mix4(a, k.dy);
+          d.x += tx * ax.x + ty * ay.x;
+          d.y += tx * ax.y + ty * ay.y;
+          d.z += tx * ax.z + ty * ay.z;
+          d.w += tx * ax.w + ty * ay.w;
+          if (dcrd) {
+            float4 mixed;  // sum_k w_xy,k I_k, w_xy = (+1, -1, -1, +1)
+            mixed.x = ((a[0].x - a[1].x) - a[2].x) + a[3].x;
+            mixed.y = ((a[0].y - a[1].y) - a[2].y) + a[3].y;
+            mixed.z = ((a[0].z - a[1].z) - a[2].z) + a[3].z;
+            mixed.w = ((a[0].w - a[1].w) - a[2].w) + a[3].w;
+            m += dot4(gq, mixed);
+          }
+        }
+        if (dg) {
+          __stcs(reinterpret_cast<float4*>(dg + (first + p) * C + c0 + c), d);
+        }
       }
-      if (dg) dg[gbase + static_cast<int64_t>(c) * N] = dgc;
+      if (dcrd) {
+        ex = warp_sum(ex);
+        ey = warp_sum(ey);
+        m = warp_sum(m);
+        if (lane == 0) {
+          ex_s[p] += ex;
+          ey_s[p] += ey;
+          m_s[p] += m;
+        }
+      }
     }
-    if (dcrd) {
-      dcrd[2 * t] = sx * ex + sx * ty * mixed;
-      dcrd[2 * t + 1] = sy * ey + sy * tx * mixed;
+  }
+  if (dcrd) {
+    __syncthreads();
+    if (t < npts) {
+      const float tx = tv ? tv[2 * t] * sx : 0.f;
+      const float ty = tv ? tv[2 * t + 1] * sy : 0.f;
+      float* d = dcrd + (first + t) * 2;
+      d[0] = sx * ex_s[t] + sx * ty * m_s[t];
+      d[1] = sy * ey_s[t] + sy * tx * m_s[t];
     }
   }
 }
 
-unsigned blocks_for(int64_t total) {
-  const int64_t b = (total + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(b < (1 << 30) ? (b > 0 ? b : 1) : (1 << 30));
+// Points: a thread per point, a loop over C, scalar atomics for dI; dg is
+// (V, N, C) memory as in the tiled kernel.
+__global__ void __launch_bounds__(kThreads)
+grid_sample_bwd2_point(const float* __restrict__ g,
+                       const float* __restrict__ img,
+                       const float* __restrict__ crd,
+                       const float* __restrict__ ggimg,
+                       const float* __restrict__ ggcrd,
+                       float* __restrict__ dg, float* __restrict__ dimg,
+                       float* __restrict__ dcrd, int C, int H, int W,
+                       int64_t N, GStrides gs, Strides s, Strides ts) {
+  const int64_t n = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (n >= N) return;
+  const int64_t v = blockIdx.y, t = v * N + n;
+  const float sx = 0.5f * (W - 1), sy = 0.5f * (H - 1);
+  const Corners k = corners(position(crd[2 * t], W),
+                            position(crd[2 * t + 1], H), H, W);
+  const float* I = img + v * s.v;
+  const float* GG = ggimg ? ggimg + v * ts.v : nullptr;
+  float* D = dimg ? dimg + v * H * W * C : nullptr;
+  const float* gp = g + v * gs.v + n * gs.n;
+  const float tx = ggcrd ? ggcrd[2 * t] * sx : 0.f;
+  const float ty = ggcrd ? ggcrd[2 * t + 1] * sy : 0.f;
+  float ex = 0.f, ey = 0.f, mixed = 0.f;
+  for (int c = 0; c < C; ++c) {
+    const float gc = gp[c * gs.c];
+    float dgc = 0.f;
+    if (GG) {
+      float sw = 0.f, sxk = 0.f, syk = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float q = GG[k.at(ts, j) + c * ts.c];
+        sw += k.w[j] * q;
+        sxk += k.dx[j] * q;
+        syk += k.dy[j] * q;
+      }
+      dgc += sw;
+      ex += gc * sxk;
+      ey += gc * syk;
+    }
+    if (ggcrd) {
+      float i[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) i[j] = I[k.at(s, j) + c * s.c];
+      float sxk = 0.f, syk = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sxk += k.dx[j] * i[j];
+        syk += k.dy[j] * i[j];
+        if (D) {
+          atomicAdd(D + k.pixel(j, W) * C + c,
+                    gc * (tx * k.dx[j] + ty * k.dy[j]));
+        }
+      }
+      dgc += tx * sxk + ty * syk;
+      mixed += gc * (((i[0] - i[1]) - i[2]) + i[3]);
+    }
+    if (dg) dg[t * C + c] = dgc;
+  }
+  if (dcrd) {
+    dcrd[2 * t] = sx * ex + sx * ty * mixed;
+    dcrd[2 * t + 1] = sy * ey + sy * tx * mixed;
+  }
 }
 
 bool bad_sizes(int64_t V, int64_t C, int64_t H, int64_t W, int64_t N) {
@@ -631,23 +814,40 @@ extern "C" int mpsnerf_grid_sample_patch_bwd(
 // g: (V, C, N) with strides (gV, gC, gN); img: (V, C, H, W) with strides
 // (sV, sC, sH, sW); ggimg: the same shape with strides (tV, tC, tH, tW),
 // or null; crd, ggcrd: (V, N, 2) contiguous (ggcrd may be null); outputs
-// dg (V, C, N) contiguous, dimg zeroed (V, H, W, C) contiguous, dcrd
-// (V, N, 2), each null when not wanted.
+// dg (V, N, C) contiguous, dimg zeroed (V, H, W, C) contiguous (only with
+// ggcrd), dcrd (V, N, 2), each null when not wanted.
 extern "C" int mpsnerf_grid_sample_patch_bwd2(
     const void* g, const void* img, const void* crd, const void* ggimg,
     const void* ggcrd, void* dg, void* dimg, void* dcrd, int64_t V,
     int64_t C, int64_t H, int64_t W, int64_t N, int64_t gV, int64_t gC,
     int64_t gN, int64_t sV, int64_t sC, int64_t sH, int64_t sW, int64_t tV,
     int64_t tC, int64_t tH, int64_t tW, void* stream) {
-  if (bad_sizes(V, C, H, W, N)) return static_cast<int>(cudaErrorInvalidValue);
-  if (N == 0) return 0;
-  grid_sample_patch_bwd2_kernel<<<blocks_for(V * N), kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const float*>(img),
-      static_cast<const float*>(crd), static_cast<const float*>(ggimg),
-      static_cast<const float*>(ggcrd), static_cast<float*>(dg),
-      static_cast<float*>(dimg), static_cast<float*>(dcrd), (int)V, (int)C,
-      (int)H, (int)W, N, GStrides{gV, gC, gN}, Strides{sV, sC, sH, sW},
-      Strides{tV, tC, tH, tW});
+  if (bad_sizes(V, C, H, W, N) || (dimg && !ggcrd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0 || (!dg && !dimg && !dcrd)) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Strides s{sV, sC, sH, sW}, ts{tV, tC, tH, tW};
+  const GStrides gs{gV, gC, gN};
+  const float* gp = static_cast<const float*>(g);
+  const float* i = static_cast<const float*>(img);
+  const float* c = static_cast<const float*>(crd);
+  const float* gi = static_cast<const float*>(ggimg);
+  const float* gc = static_cast<const float*>(ggcrd);
+  float* dgp = static_cast<float*>(dg);
+  float* di = static_cast<float*>(dimg);
+  float* dc = static_cast<float*>(dcrd);
+  if (tiled(img, C, s) && (!ggimg || tiled(ggimg, C, ts)) &&
+      ((reinterpret_cast<uintptr_t>(dimg) |
+        reinterpret_cast<uintptr_t>(dg)) & 15) == 0) {
+    const dim3 grid(static_cast<unsigned>((N + kTile - 1) / kTile),
+                    static_cast<unsigned>(V));
+    grid_sample_bwd2_tile<<<grid, kThreads, 0, st>>>(
+        gp, i, c, gi, gc, dgp, di, dc, (int)C, (int)H, (int)W, N, gs, s, ts);
+  } else {
+    const dim3 grid(static_cast<unsigned>((N + kThreads - 1) / kThreads),
+                    static_cast<unsigned>(V));
+    grid_sample_bwd2_point<<<grid, kThreads, 0, st>>>(
+        gp, i, c, gi, gc, dgp, di, dc, (int)C, (int)H, (int)W, N, gs, s, ts);
+  }
   return static_cast<int>(cudaGetLastError());
 }

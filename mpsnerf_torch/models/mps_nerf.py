@@ -44,7 +44,11 @@ from mpsnerf_torch.ops.grid_sample import (
     grid_sample_2d_patch,
     index_features_patch,
 )
-from mpsnerf_torch.ops.knn import nearest_vertex
+from mpsnerf_torch.ops.knn import (
+    VertexBuckets,
+    kernel_buckets,
+    nearest_vertex,
+)
 from mpsnerf_torch.ops.positional import pe_dim, positional_encoding
 from mpsnerf_torch.smpl.lbs import (
     PoseTransforms,
@@ -157,11 +161,15 @@ class MPSNeRF(nn.Module):
         viewdirs: torch.Tensor,    # (N, 3)
         nn_ids: Optional[torch.Tensor] = None,
         compute_normals: bool = False,
+        t_buckets: Optional[VertexBuckets] = None,
     ) -> RawOutput:
         """Raw (rgb, sigma) and geometry at world points.  Three branches,
         as in the JAX package: caller-supplied nearest-vertex ids (every
         point in-body), the body-grid cull with compaction, or one exact
-        1-NN over every point."""
+        1-NN over every point.  ``t_buckets``: the 1-NN buckets of
+        ``sp_input["t_vertices"]``; a caller that queries a view tile by
+        tile builds them once and passes them, else they are built here,
+        once per query (for a CUDA table; a CPU one needs none)."""
         n = world_pts.shape[0]
         tf_t = PoseTransforms.create(smpl, tp_input["params"])
         tf_s = PoseTransforms.create(smpl, sp_input["params"])
@@ -169,7 +177,6 @@ class MPSNeRF(nn.Module):
         n_dropped = torch.zeros((), dtype=torch.int64, device=world_pts.device)
 
         smpl_query_pts = world_to_smpl(world_pts, tf_t.R, tf_t.Th)
-        tar_smpl_pts = world_to_smpl(tp_input["vertices"], tf_t.R, tf_t.Th)
         q_stop = smpl_query_pts.detach()
 
         capacity = max(1024, min(int(np.ceil(n * COMPACT_FRACTION / 1024))
@@ -181,6 +188,7 @@ class MPSNeRF(nn.Module):
         elif "body_grid" in tp_input:
             cand = grid_lookup(tp_input["body_grid"], q_stop)
             cplan = plan_compaction(cand, capacity)
+            tar_smpl_pts = world_to_smpl(tp_input["vertices"], tf_t.R, tf_t.Th)
             d2, q_ids = nearest_vertex(compact(cplan, q_stop), tar_smpl_pts)
             in_domain = (torch.arange(d2.shape[0], device=d2.device)
                          < cplan.n_valid)
@@ -190,6 +198,7 @@ class MPSNeRF(nn.Module):
             # candidates beyond 5 cm run the tail and are masked below
             pts_mask = expand_gather(cplan, fine, 0)
         else:
+            tar_smpl_pts = world_to_smpl(tp_input["vertices"], tf_t.R, tf_t.Th)
             d2, vert_ids_t = nearest_vertex(q_stop, tar_smpl_pts)
             pts_mask = (d2 < HUMAN_DIST_THRESHOLD_SQ).to(torch.int32)
             cplan = plan_compaction(pts_mask, capacity)
@@ -202,10 +211,13 @@ class MPSNeRF(nn.Module):
         can_pts = deform_target_to_canonical(
             smpl, tf_t, q_pts, q_ids, mean_shape=False)
         t_vertices = sp_input["t_vertices"]
+        if t_buckets is None:
+            t_buckets = kernel_buckets(t_vertices)
 
         def tail(can):
             # canonical 1-NN (no gradient), forward LBS, conditioning, MLP
-            _, ids_c = nearest_vertex(can.detach().contiguous(), t_vertices)
+            _, ids_c = nearest_vertex(can.detach().contiguous(), t_vertices,
+                                      t_buckets)
             src, world, bw = deform_canonical_to_source(
                 smpl, tf_s, can, ids_c, mean_shape=False)
             f1, f2 = self._view_features(sp_input, latent, world)

@@ -34,12 +34,15 @@ tile before one vector atomic), the RGB lies as (V, 3, H, W) (the
 per-point kernels).  Only a wide image (C % 4 == 0) whose channels are
 not innermost is copied to channels-last, counted in ``LAYOUT_COPIES``.
 The forward returns (V, C, N) as a view of (V, N, C) memory, as the plain
-version does.  The backward computes only the gradients the running
-backward wants: no coordinate gradient for coords that carry none (the
-plain train step), no image scatter for an image whose gradient the
-engine will not use (the RGB; the latent under the occupancy normal's
-inner ``autograd.grad``).  How each kernel is bounded and designed is in
-the ``.cu`` header.
+version does, and so does the double backward's d g.  The backward and
+the double backward compute only the gradients the running backward
+wants (:func:`_grad_reaches` asks the engine): no coordinate gradient for
+coords that carry none (the plain train step) or whose gradient reaches
+no input of the running backward (the smooth step's outer backward,
+taken for the parameters only), no image scatter for an image whose
+gradient the engine will not use (the RGB; the latent under the
+occupancy normal's inner ``autograd.grad``).  How each kernel is bounded
+and designed is in the ``.cu`` header.
 """
 
 from __future__ import annotations
@@ -343,7 +346,11 @@ def grid_sample_patch_bwd_cuda(g, image, coords, need_image: bool,
 def grid_sample_patch_bwd2_cuda(g, image, coords, gg_image, gg_coords,
                                 need: Tuple[bool, bool, bool]):
     """K2 double backward on the card: ``(d g, d image, d coords)``, None
-    where ``need`` says so."""
+    where ``need`` says so (d image also where ``gg_coords`` is None: it
+    is zero).  ``g``, the image and ``gg_image`` are read through their
+    strides; the channel-tiled kernel runs when the image (and gg_image)
+    have their channels innermost, C % 4 == 0.  d g is (V, C, N) as a view
+    of (V, N, C) memory."""
     name = "grid_sample_patch_bwd2_cuda"
     dev = _check_cuda(name, g=g, image=image, coords=coords,
                       gg_image=gg_image, gg_coords=gg_coords)
@@ -352,7 +359,8 @@ def grid_sample_patch_bwd2_cuda(g, image, coords, gg_image, gg_coords,
             gg_coords=(gg_coords, coords.shape))
     need_g, need_image, need_coords = need
     need_image = need_image and gg_coords is not None
-    d_g = torch.empty(v, c, n, device=dev) if need_g else None
+    d_g = torch.empty_strided((v, c, n), (n * c, 1, c), device=dev) \
+        if need_g else None
     d_hwc = torch.zeros(v, h, w, c, device=dev) if need_image else None
     d_coords = torch.empty(v, n, 2, device=dev) if need_coords else None
     if n > 0 and (need_g or need_image or need_coords):
@@ -377,10 +385,11 @@ def _on_cpu(*tensors) -> bool:
 def _grad_reaches(ctx, i: int) -> bool:
     """Whether the running backward wants input ``i``'s gradient.
     ``needs_input_grad`` is fixed when the forward runs; ``autograd.grad``
-    runs only the nodes on its way to its inputs (the occupancy normal's
-    inner gradient is taken for the points, not the latent).  The engine
-    cannot answer for a leaf under ``autograd.grad``: a leaf that needs a
-    gradient keeps it."""
+    (and ``backward(inputs=...)``) runs only the nodes on its way to its
+    inputs (the occupancy normal's inner gradient is taken for the points,
+    not the latent; the trainer's backward for the parameters, not the
+    canonical points).  The engine cannot answer for a leaf under
+    ``autograd.grad``: a leaf that needs a gradient keeps it."""
     if not ctx.needs_input_grad[i]:
         return False
     node = ctx.next_functions[i][0]
@@ -407,7 +416,7 @@ class GridSamplePatchBackward(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gg_image, gg_coords):
         g, image, coords = ctx.saved_tensors
-        need = tuple(ctx.needs_input_grad[:3])
+        need = tuple(_grad_reaches(ctx, i) for i in range(3))
         if (gg_image is None and gg_coords is None) or not any(need):
             return None, None, None, None, None
         args = (g, image, coords, gg_image, gg_coords, need)
@@ -435,8 +444,9 @@ class GridSamplePatch(torch.autograd.Function):
         # no image scatter where the image's gradient is not wanted (the
         # RGB images; the latent under the normal's inner gradient), no
         # coordinate gradient where the coords carry none (the plain step)
+        # or where it reaches no input of the running backward
         need_image = _grad_reaches(ctx, 0)
-        need_coords = ctx.needs_input_grad[1]
+        need_coords = _grad_reaches(ctx, 1)
         if not (need_image or need_coords):
             return None, None
         return GridSamplePatchBackward.apply(g, image, coords, need_image,

@@ -31,7 +31,7 @@ from mpsnerf_torch.ops.compact import (
     resize_plan,
 )
 from mpsnerf_torch.ops.composite import composite_rays, stratified_z_vals
-from mpsnerf_torch.ops.knn import nearest_vertex
+from mpsnerf_torch.ops.knn import kernel_buckets, nearest_vertex
 from mpsnerf_torch.smpl.lbs import PoseTransforms, world_to_smpl
 from mpsnerf_torch.smpl.model import SMPLModel
 
@@ -122,8 +122,9 @@ def fine_rays_compact(
     plan: Compaction,
     capacity: int,
 ):
-    """Stage-2 pre-pass: one exact 1-NN over the candidate buffer gives
-    the true 5 cm body mask and the warp's nearest-vertex ids.  Returns
+    """Stage-2 pre-pass: one exact 1-NN over the candidate buffer (its
+    buckets of the posed vertices built once, here) gives the true 5 cm
+    body mask and the warp's nearest-vertex ids.  Returns
     ``(fine_plan, nn_ids (capacity,))``; ``fine_plan.n_valid`` is the exact
     body-point count."""
     _, pts = _sample_points(rays_o, rays_d, near, far, n_samples)
@@ -162,8 +163,9 @@ def render_rays_compact(
     the image is not exact.
 
     The tail runs only on the ``fine_rays_compact`` body points, in tiles,
-    with their nearest-vertex ids; every other sample composites through
-    the -80 fill.  The plans must come from the pre-passes over the same
+    with their nearest-vertex ids and the canonical vertices' 1-NN buckets
+    (built once for the view); every other sample composites through the
+    -80 fill.  The plans must come from the pre-passes over the same
     rays, so the pre-passes and the render cannot disagree."""
     assert capacity % tile == 0 and fine_capacity % tile == 0, (
         capacity, fine_capacity, tile)
@@ -180,11 +182,13 @@ def render_rays_compact(
                           take=plan.take, n_valid=plan2.n_valid)
     cids = compact(plan2, fine_ids)
     cpts, cvd = pts[comp_idx], vd[comp_idx]
+    t_buckets = kernel_buckets(sp_input["t_vertices"])
     rgb_t = pts.new_empty(fine_capacity, 3)
     sig_t = pts.new_empty(fine_capacity)
     for s in range(0, fine_capacity, tile):
         raw = model.query(smpl, sp_input, tp_input, latent, cpts[s:s + tile],
-                          cvd[s:s + tile], nn_ids=cids[s:s + tile])
+                          cvd[s:s + tile], nn_ids=cids[s:s + tile],
+                          t_buckets=t_buckets)
         rgb_t[s:s + tile] = raw.rgb
         sig_t[s:s + tile] = raw.sigma
 

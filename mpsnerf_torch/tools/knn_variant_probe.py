@@ -6,7 +6,8 @@ port's counterpart of ``tools/knn_variant_probe.py``).
 At the probe's shape (2,572,288 queries uniform in [-1.2, 1.2]^3 against
 6890 vertices uniform in [-1, 1]^3, from a seeded ``torch.Generator`` on
 the card) it times with CUDA events: the exact 1-NN kernel K1
-(``nearest_vertex_cuda``), the packed-key kernel
+(``nearest_vertex_cuda``, its buckets built beforehand; these queries lie
+in random order, K1's worst case), the packed-key kernel
 (``csrc/nearest_vertex_packed.cu``) at each launch variant (queries per
 thread x vertex tile in shared memory), and the packed kernel's plain
 PyTorch version once.  It prints each time, the share of ids equal to
@@ -60,8 +61,9 @@ def run_probe(n: int = 2_572_288, nv: int = 6890, seed: int = 0,
     if device.type != "cuda":
         raise ValueError(f"the probe times the card; got device {device}")
     q, v = probe_inputs(n, nv, seed, device)
-    k1_ms = cuda_ms(lambda: knn.nearest_vertex_cuda(q, v), reps)
-    _, ids_k1 = knn.nearest_vertex_cuda(q, v)
+    buckets = knn.build_vertex_buckets(v)
+    k1_ms = cuda_ms(lambda: knn.nearest_vertex_cuda(q, v, buckets), reps)
+    _, ids_k1 = knn.nearest_vertex_cuda(q, v, buckets)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()

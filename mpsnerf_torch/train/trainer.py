@@ -160,6 +160,7 @@ class Trainer:
         self.model = model.to(self.device).train()
         self.cfg = cfg
         self.step = start_step
+        self.params = list(self.model.parameters())
         self.optimizer = make_optimizer(self.model, cfg)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -185,7 +186,9 @@ class Trainer:
         total, (terms, _) = self._loss[smooth](
             smpl, sp_input, tp_input, *rays, u=u, delta=delta,
             generator=self.generator)
-        total.backward()
+        # for the parameters only: no gradient of the canonical points (a
+        # leaf of the smooth step's normal) is computed, e.g. in K2
+        total.backward(inputs=self.params)
         lr = lr_at_step(self.cfg, self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr

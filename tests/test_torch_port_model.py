@@ -228,10 +228,17 @@ def _query_points(scene, n=2048, seed=0):
 
 
 @pytest.mark.parametrize("branch", ["nn_ids", "body_grid", "single_phase"])
-def test_query_branches(scene, branch):
+def test_query_branches(scene, branch, monkeypatch):
     """All three branches of MPSNeRF.query: rgb and sigma at atol 1e-4
     (the tail stacks convolutions, the transformer and an 8-layer MLP in
-    fp32), pts_mask and n_dropped exact."""
+    fp32), pts_mask and n_dropped exact; on the CPU no branch builds 1-NN
+    buckets (the brute force reads none)."""
+    from mpsnerf_torch.ops import knn as t_knn
+
+    def no_build(verts):
+        raise AssertionError("buckets built for a CPU table")
+
+    monkeypatch.setattr(t_knn, "build_vertex_buckets_plain", no_build)
     pts, vd = _query_points(scene)
     model, variables = scene["model"], scene["variables"]
     j_inp, t_inp = scene["j_inp"], scene["t_inp"]

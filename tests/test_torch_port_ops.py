@@ -174,6 +174,176 @@ class TestNearestVertex:
         assert t_knn.LAUNCHES["nearest_vertex"] == 0
 
 
+def _culling_case(kind, nv, seed=0, nq=1500):
+    """Query and vertex sets built to break K1's skip rule (float32)."""
+    rng = np.random.default_rng(seed)
+    v = (rng.normal(size=(nv, 3)) * 0.3).astype(np.float32)
+    near = v[rng.integers(0, nv, nq)] + rng.normal(size=(nq, 3)) * 0.05
+    if kind == "ties":
+        # a lattice of step 1/8 with shuffled ids; queries at cell centres
+        # and edge midpoints tie exactly between vertices of other buckets
+        m = int(np.ceil(nv ** (1 / 3))) + 1
+        grid = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"), -1)
+        v = (grid.reshape(-1, 3)[:nv] / 8.0)[rng.permutation(nv)]
+        cell = v[rng.integers(0, nv, nq)]
+        half = rng.integers(0, 2, (nq, 3)) / 16.0
+        half[: nq // 2] = 1 / 16.0
+        q = cell + half
+    elif kind == "duplicates":
+        base = v[: max(1, (nv + 1) // 2)]
+        v = np.concatenate([base, base[: nv - len(base)]])[rng.permutation(nv)]
+        q = v[rng.integers(0, nv, nq)] + rng.normal(size=(nq, 3)) * 0.02
+        q[: nq // 4] = v[rng.integers(0, nv, nq // 4)]  # on a vertex
+    elif kind == "box_faces":
+        b = t_knn.build_vertex_buckets(_t(v))
+        lo, hi = b.boxes[:, 0:3].numpy(), b.boxes[:, 4:7].numpy()
+        pick = rng.integers(0, 2, (len(lo), 8, 3)).astype(bool)
+        corners = np.where(pick, lo[:, None], hi[:, None]).reshape(-1, 3)
+        faces = np.repeat((lo + hi) / 2, 6, 0).reshape(len(lo), 6, 3)
+        for a in range(3):
+            faces[:, 2 * a, a], faces[:, 2 * a + 1, a] = lo[:, a], hi[:, a]
+        q = np.concatenate([corners, faces.reshape(-1, 3)])
+        q = q[rng.permutation(len(q))[:nq]]
+    elif kind == "far":
+        d = rng.normal(size=(nq, 3))
+        q = d / np.linalg.norm(d, axis=1, keepdims=True) * 1e3
+        q[:64] *= 1e17  # d2 overflows to inf: every vertex ties
+    elif kind == "random_order":
+        q = near[rng.permutation(nq)]
+    else:  # "rays": samples along lines through the table, in ray order
+        rays = []
+        for c in v[rng.integers(0, nv, nq // 50)]:
+            d = rng.normal(size=3)
+            rays.append(c + np.linspace(-0.4, 0.4, 50)[:, None] * d
+                        / np.linalg.norm(d))
+        q = np.concatenate(rays)
+    return np.ascontiguousarray(q, np.float32), np.ascontiguousarray(
+        v, np.float32)
+
+
+class TestBucketedNearestVertex:
+    """K1's culled search (``nearest_vertex_bucketed_plain``: the kernel's
+    buckets, groups of 32, bounds and skip rule in plain PyTorch) equals
+    the brute force id for id and d2 for d2."""
+
+    @pytest.mark.parametrize("nv", [1, 31, 33, 6890])
+    @pytest.mark.parametrize("kind", ["ties", "duplicates", "box_faces",
+                                      "far", "random_order", "rays"])
+    def test_culled_search_equals_brute_force(self, kind, nv):
+        q, v = map(_t, _culling_case(kind, nv))
+        b = t_knn.build_vertex_buckets(v)
+        d2, ids, pairs = t_knn.nearest_vertex_bucketed_plain(q, b)
+        d2_p, ids_p = t_knn.nearest_vertex_plain(q, v)
+        assert torch.equal(ids, ids_p) and torch.equal(d2, d2_p)
+        assert ids.dtype == torch.int64
+        nb = b.boxes.shape[0]
+        assert len(q) * t_knn.BUCKET <= pairs <= len(q) * nb * t_knn.BUCKET
+        if kind == "ties" and nv > 1:
+            ties = (_t(q)[:, None, :] - v[None]).pow(2).sum(-1)
+            assert int((ties == ties.min(1, keepdim=True).values).sum()) \
+                > 2 * len(q)  # the set really ties
+
+    def test_culling_skips_most_pairs_on_ray_ordered_queries(self, rig):
+        """On the 6890-vertex rig the ray-ordered queries evaluate a small
+        share of the brute force's pairs, and the result is unchanged."""
+        _, t_smpl, _ = rig
+        v = t_smpl.v_template.float().contiguous()
+        rng = np.random.default_rng(5)
+        rays = []
+        for c in v.numpy()[rng.integers(0, len(v), 40)]:
+            d = rng.normal(size=3)
+            rays.append(c + np.linspace(-0.4, 0.4, 64)[:, None] * d
+                        / np.linalg.norm(d))
+        q = _t(np.concatenate(rays).astype(np.float32))
+        b = t_knn.build_vertex_buckets(v)
+        d2, ids, pairs = t_knn.nearest_vertex_bucketed_plain(q, b)
+        d2_p, ids_p = t_knn.nearest_vertex_plain(q, v)
+        assert torch.equal(ids, ids_p) and torch.equal(d2, d2_p)
+        assert pairs < 0.3 * len(q) * len(v)
+
+    def test_culled_search_matches_jax(self, rig):
+        """Against the JAX package's ``nearest_vertex`` on the rig, with
+        TestNearestVertex's criterion (the JAX CPU oracle is the product
+        form)."""
+        j_smpl, _, _ = rig
+        v = np.asarray(j_smpl.v_template)
+        rng = np.random.default_rng(4)
+        q = (v[rng.integers(0, len(v), 2048)]
+             + rng.normal(size=(2048, 3)) * 0.05).astype(np.float32)
+        d2, ids, _ = t_knn.nearest_vertex_bucketed_plain(
+            _t(q), t_knn.build_vertex_buckets(_t(v)))
+        d2_j, ids_j = j_knn.nearest_vertex(jnp.asarray(q), jnp.asarray(v))
+        _check_knn(ids.numpy(), d2.numpy(), q, v)
+        np.testing.assert_allclose(d2.numpy(), np.asarray(d2_j), atol=1e-4)
+        assert (ids.numpy() == np.asarray(ids_j)).mean() > 0.95
+
+    @pytest.mark.parametrize("nv", [1, 31, 33, 6890])
+    def test_bucket_build_against_brute_force_boxes(self, nv, rig):
+        """Every vertex in exactly one place (the pad repeats the last),
+        rows equal to the vertex of their id, ids ascending in a bucket,
+        each box the min/max of its rows; on the rig the Morton order keeps
+        buckets small (by id they would span the body)."""
+        v = (rig[1].v_template.float() if nv == 6890 else _t(
+            np.random.default_rng(nv).normal(size=(nv, 3)).astype(
+                np.float32)))
+        b = t_knn.build_vertex_buckets(v)
+        nb = -(-nv // t_knn.BUCKET)
+        assert b.n_verts == nv and b.table.shape == (nb * t_knn.BUCKET, 4)
+        assert b.boxes.shape == (nb, 8)
+        ids = b.table[:, 3].contiguous().view(torch.int32).long()
+        assert sorted(set(ids.tolist())) == list(range(nv))
+        assert len(ids) - len(set(ids.tolist())) == nb * t_knn.BUCKET - nv
+        assert torch.equal(b.table[:, :3], v[ids])
+        rows = b.table[:, :3].numpy().reshape(nb, t_knn.BUCKET, 3)
+        for k in range(nb):
+            bucket_ids = ids[k * t_knn.BUCKET:(k + 1) * t_knn.BUCKET]
+            assert bool((bucket_ids[1:] >= bucket_ids[:-1]).all())
+            np.testing.assert_array_equal(b.boxes[k, 0:3].numpy(),
+                                          rows[k].min(0))
+            np.testing.assert_array_equal(b.boxes[k, 4:7].numpy(),
+                                          rows[k].max(0))
+        assert float(b.boxes[:, 3].abs().sum() + b.boxes[:, 7].abs().sum()) \
+            == 0.0
+        if nv == 6890:
+            diag = (b.boxes[:, 4:7] - b.boxes[:, 0:3]).norm(dim=1).mean()
+            whole = (v.amax(0) - v.amin(0)).norm()
+            assert float(diag) < 0.25 * float(whole)
+
+    @pytest.mark.parametrize("case", ["cpu", "shape"])
+    def test_cuda_bucket_build_rejects_what_it_does_not_take(self, case):
+        """The build kernel's wrapper raises on a CPU table or a non-(V, 3)
+        one (it never falls back); the CPU dispatch counts no launch."""
+        v = torch.zeros(8, 3) if case == "cpu" else torch.zeros(8, 4)
+        with pytest.raises(ValueError):
+            t_knn.build_vertex_buckets_cuda(v)
+        t_knn.build_vertex_buckets(torch.zeros(8, 3))
+        assert t_knn.LAUNCHES["vertex_buckets"] == 0
+
+    def test_cpu_dispatch_ignores_buckets(self, rig):
+        """On the CPU ``nearest_vertex`` is the brute force whether or not
+        buckets are passed, and counts no launch."""
+        _, t_smpl, _ = rig
+        v = t_smpl.v_template.float()
+        q = v[:300] + 0.01
+        b = t_knn.build_vertex_buckets(v)
+        a, c = t_knn.nearest_vertex(q, v, b), t_knn.nearest_vertex_plain(q, v)
+        assert all(torch.equal(x, y) for x, y in zip(a, c))
+        assert t_knn.LAUNCHES["nearest_vertex"] == 0
+
+    def test_cpu_table_gets_no_buckets(self, rig, monkeypatch):
+        """``kernel_buckets`` builds nothing for a CPU table (the brute
+        force reads none), and ``nearest_vertex`` builds none itself."""
+        def no_build(verts):
+            raise AssertionError("buckets built for a CPU table")
+
+        monkeypatch.setattr(t_knn, "build_vertex_buckets_plain", no_build)
+        v = rig[1].v_template.float()
+        assert t_knn.kernel_buckets(v) is None
+        a = t_knn.nearest_vertex(v[:300] + 0.01, v)
+        assert torch.equal(a[1], t_knn.nearest_vertex_plain(v[:300] + 0.01,
+                                                            v)[1])
+
+
 class TestCompaction:
     @pytest.mark.parametrize("capacity", [1024, 2048, 6144])
     def test_plan_resize_and_expand_scatter_exact(self, capacity):

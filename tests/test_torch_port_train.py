@@ -383,6 +383,68 @@ def test_view_step_loss_and_gradients_match_jax(scene, smooth, grad_tol,
                                        atol=1e-5, err_msg=name)
 
 
+def test_smooth_step_double_backward_computes_only_what_it_reads(
+        scene, monkeypatch):
+    """A smooth ``Trainer.view_step`` takes its backward for the parameters
+    only, so K2's outer backward and double backward skip the coordinate
+    gradient (it reaches only the canonical points, a leaf): the flags
+    asked for are asserted, and every parameter gradient is bit-equal to a
+    run that computes every output ``needs_input_grad`` allows."""
+    import copy
+
+    from mpsnerf_torch.ops import grid_sample as t_gs
+
+    bwd_plain = t_gs.grid_sample_patch_backward_plain
+    bwd2_plain = t_gs.grid_sample_patch_double_backward_plain
+    base = _port_model(scene)
+    delta = torch.from_numpy(
+        (0.01 * np.random.default_rng(8).normal(size=(N_RAYS * N_SAMPLES, 3)))
+        .astype(np.float32))
+
+    def run():
+        seen = {"bwd": [], "bwd2": []}
+
+        def spy_bwd(g, image, coords, need_image, need_coords):
+            seen["bwd"].append((image.shape[1], need_image, need_coords))
+            return bwd_plain(g, image, coords, need_image, need_coords)
+
+        def spy_bwd2(g, image, coords, gg_image, gg_coords, need):
+            seen["bwd2"].append((image.shape[1], gg_image is None) + need)
+            return bwd2_plain(g, image, coords, gg_image, gg_coords, need)
+
+        monkeypatch.setattr(t_gs, "grid_sample_patch_backward_plain", spy_bwd)
+        monkeypatch.setattr(t_gs, "grid_sample_patch_double_backward_plain",
+                            spy_bwd2)
+        trainer = t_trainer.Trainer(
+            copy.deepcopy(base), t_trainer.TrainConfig(n_samples=N_SAMPLES,
+                                                       perturb=0.0),
+            device="cpu")
+        assert trainer.smooth_now()
+        trainer.view_step(scene["t_smpl"], scene["t_inp"], scene["t_inp"], 0,
+                          delta=delta)
+        grads = {n: p.grad.clone() for n, p in
+                 trainer.model.named_parameters() if p.grad is not None}
+        return {k: sorted(v) for k, v in seen.items()}, grads
+
+    seen, grads = run()
+    inner = [(3, False, True), (128, False, True)] * 2
+    assert seen["bwd"] == sorted(inner + [(128, True, False)] * 2)
+    assert seen["bwd2"] == sorted([(3, True, True, False, False),
+                                   (128, True, True, True, False)] * 2)
+    monkeypatch.setattr(t_gs, "_grad_reaches",
+                        lambda ctx, i: ctx.needs_input_grad[i])
+    seen_all, grads_all = run()
+    # the inner calls scatter the latent's gradient too; the RGB's outer
+    # backward node leads to no parameter and is not run in either
+    assert seen_all["bwd"] == sorted([(3, False, True)] * 2
+                                     + [(128, True, True)] * 4)
+    assert seen_all["bwd2"] == sorted([(3, True, True, False, True),
+                                       (128, True, True, True, True)] * 2)
+    assert grads.keys() == grads_all.keys() and len(grads) > 10
+    for name, g in grads.items():
+        assert torch.equal(g, grads_all[name]), name
+
+
 def test_adam_step_matches_optax_on_the_same_gradients():
     """The trainer's Adam with the lr from ``lr_at_step`` equals
     ``optax.scale_by_adam`` scaled by the JAX package's ``lr_at_step``, on
