@@ -29,13 +29,17 @@ non-zero):
      and a smooth step's real latent inputs (and the flags those steps
      asked for);
   3. CUDA against CPU at 64^2 (full 6890-vertex rig, seeded weights, TF32
-     off): the serving render (pixels 1e-4, counts exact), and one plain
-     and one smooth training loss (perturb 0, the same injected smooth
-     delta): loss terms 1e-4, each parameter gradient to 1e-3 of its
-     tensor's max |grad|;
+     off): the serving render, the chunked path and the chunked path at
+     ``n_importance`` 4 (pixels 1e-4, counts exact), one plain and one
+     smooth training loss at ``n_importance`` 0 and 4 (perturb 0, the same
+     injected smooth delta): loss terms 1e-4, each parameter gradient to
+     1e-3 of its tensor's max |grad|; ``run_synthetic_eval`` (every
+     per-image metric to 1e-4 relative);
   4. serving at full width: 3 input views at 512^2, the flagship model
-     with seeded weights, 128 samples per ray, ``ViewRenderer.render_view``
-     for 3 requests after one warm-up view; each request must drop
+     with seeded weights, 128 samples per ray, ``ViewRenderer`` for 3
+     requests after one warm-up view (each timed from the request to its
+     image on the device, ``render_view_async``; the host's fetch and
+     scatter, ``finish_view``, apart); each request must drop
      nothing, give finite pixels, accumulate opacity > 0.5 on > 1 % of the
      pixels and launch K1 at least twice and K2 forward; the encoded
      latent must be channels-last and K2 must copy no layout; K1's and
@@ -49,21 +53,40 @@ non-zero):
      and a profiler breakdown with K2's share of the busy time;
   6. the 1-NN variant probe (``mpsnerf_torch.tools.knn_variant_probe``) at
      2,572,288 x 6890;
-  7. one ``{"kernels": [...]}`` line: each kernel's launches on its path
-     and its times against its bound, the plain version and a library
-     call; for K1 every shape the path launches (``shapes``: the fine
-     pre-pass, a tail tile, the plain step's mask and canonical calls,
-     random order, the streamed path) with its bound (what any exact 1-NN
-     must do: the bytes, and one pair per query), the pairs it evaluated
-     and the time the card needs for those and for every pair (the
-     instructions a pair counted in phase 1's SASS, over 132 SMs x 128
-     lanes x the card's maximum SM clock); for K2 also the RGB, the other
-     image layout, and the backward and double
-     backward on each captured set beside the yardstick of autograd
-     through ``F.grid_sample`` (not the same function at the border);
-  8. the device line, last.
+  7. kernel times: each kernel's times against its bound, the plain
+     version and a library call; for K1 every shape the path launches
+     (``shapes``: the fine pre-pass, a tail tile, the plain step's mask and
+     canonical calls, random order, the streamed path) with its bound
+     (what any exact 1-NN must do: the bytes, and one pair per query), the
+     pairs it evaluated and the time the card needs for those and for
+     every pair (the instructions a pair counted in phase 1's SASS, over
+     132 SMs x 128 lanes x the card's maximum SM clock); for K2 also the
+     RGB, the other image layout, and the backward and double backward on
+     each captured set beside the yardstick of autograd through
+     ``F.grid_sample`` (not the same function at the border);
+  8. the eval entry point at full width (the phase-4 scene and seeded
+     model, ``args`` from ``configs/canonical_transformer.txt`` through
+     ``mpsnerf_torch.config``): ``run_synthetic_eval`` into a temporary
+     directory (6 views), pipelined and with the sequential loop (time per
+     image, launches per view, finite metrics, 12 PNGs and the metrics
+     files; every metric array equal and every file byte-equal between the
+     two); views 1 and 3 through two async handles in flight, equal to
+     ``render_view``; view 1 on the global path, the chunked path (within
+     1e-4 of the global image) and the chunked path at ``n_importance`` 64
+     (time, overflow chunks, peak memory, acc > 0.5 share, finite); one
+     smooth and two plain train steps at ``n_importance`` 64 (times,
+     ``n_dropped``, finite, launches); then phase 2's comparisons on the
+     inputs these paths gave the kernels: K1 and K2 forward on one chunk
+     of that view rendered as the overflow fallback does (uncompacted, 2.3M
+     points), and K1, K2 forward, backward and double backward on a plain
+     and a smooth step at ``n_importance`` 64;
+  then one ``{"kernels": [...]}`` line: each kernel's record from phase 7
+     with its launches on each path (``launches``: phase 5;
+     ``launches_serving``: phase 4; ``launches_eval``,
+     ``launches_hier_plain``, ``launches_hier_smooth``: phase 8);
+  9. the device line, last.
 
-Launch counts are set to 0 just before each path (phases 4, 5, 6) and
+Launch counts are set to 0 just before each path (phases 4, 5, 6, 8) and
 read just after; launches made to compare or time a kernel do not count.
 ``--stop-after N`` ends the run after phase N (a short check of a new
 kernel); it then prints no result lines.
@@ -500,47 +523,86 @@ def compare_k2(name, shape, dev):
     return err
 
 
-def compare_captured(captured):
-    """Phase 2 on the inputs phases 4 and 5 captured (real coordinates):
-    K1 on a tail tile and a plain step's two calls; each K2 backward set
-    with the flags its step used and with both outputs; the double
-    backward with its flags and with every output.  Returns the worst abs
-    error of each kernel."""
+def compare_fwd(label, image, coords, step=1 << 19):
+    """K2's forward against its plain version on captured inputs, to 1e-6
+    (phase 2's tolerance).  The plain version runs in slices of ``step``
+    points: its four corner gathers of the latent at a fallback chunk's
+    2.3M points would need ~20 GB at once.  Returns (ok, max abs error)."""
     import torch
 
     from mpsnerf_torch.ops import grid_sample as gs
 
-    err = {"nearest_vertex": 0.0, "grid_sample_patch_bwd": 0.0,
-           "grid_sample_patch_bwd2": 0.0}
+    with uncounted():
+        k = gs.grid_sample_patch_fwd_cuda(image, coords)
+        torch.cuda.synchronize()
+    err = 0.0
+    for i in range(0, coords.shape[1], step):
+        p = gs.grid_sample_2d_patch_plain(image, coords[:, i:i + step])
+        err = max(err, float((k[:, :, i:i + step] - p).abs().max()))
+    ok = err <= 1e-6 and tuple(k.shape) == (*image.shape[:2], coords.shape[1])
+    log(f"[2] K2 forward on captured inputs, {label}: "
+        f"{tuple(image.shape)} x {coords.shape[1]}, max|diff| {err:.3g}: "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, err
+
+
+def compare_captured(captured, tag="", emulate=True):
+    """Phase 2 on inputs that a path captured (real coordinates): K1 on
+    each captured call (with ``emulate``, beside the plain emulation of its
+    culled search); K2's forward on each captured call; where a train
+    step's K2 calls were captured, each backward set with the flags its
+    step used and with both outputs, and the double backward with its flags
+    and with every output.  ``tag`` prefixes the labels.  Returns the worst
+    abs error of each kernel, K2's keyed by (kernel, "latent" or "rgb")."""
+    import torch
+
+    from mpsnerf_torch.ops import grid_sample as gs
+
+    err = {"nearest_vertex": 0.0}
+    ok_all = True
     for label, (q, v, b) in captured["knn"].items():
-        e, _ = compare_knn(label, q, v, b, emulate=True)
+        e, _ = compare_knn(tag + label, q, v, b, emulate=emulate)
         err["nearest_vertex"] = max(err["nearest_vertex"], e)
+    for label, (image, coords) in captured.get("fwd", {}).items():
+        ok, e = compare_fwd(tag + label, image, coords)
+        key = ("grid_sample_patch_fwd",
+               "latent" if image.shape[1] > 3 else "rgb")
+        err[key] = max(err.get(key, 0.0), e)
+        ok_all &= ok
+    if "bwd" not in captured:
+        if not ok_all:
+            raise SystemExit(1)
+        return err
     # the steps asked for exactly these: the plain step and the smooth
     # step's outer backward no coordinate gradient (the trainer's backward
     # is taken for the parameters), its inner normal gradients no image
     # scatter
     want = {"plain step": (True, False), "smooth step inner": (False, True),
             "smooth step": (True, False)}
-    ok_all = {k: need for k, (_, need) in captured["bwd"].items()} == want
-    log(f"[2] K2 backward calls of a plain and a smooth step on the latent: "
-        + ", ".join(f"{k} need {tuple(map(int, need))}"
-                    for k, (_, need) in captured["bwd"].items())
-        + f": {'ok' if ok_all else 'FAIL'}")
+    flags_ok = {k: need for k, (_, need) in captured["bwd"].items()} == want
+    ok_all &= flags_ok
+    log(f"[2] {tag}K2 backward calls of a plain and a smooth step on the "
+        f"latent: " + ", ".join(f"{k} need {tuple(map(int, need))}"
+                                for k, (_, need) in captured["bwd"].items())
+        + f": {'ok' if flags_ok else 'FAIL'}")
+    key = ("grid_sample_patch_bwd", "latent")
+    err[key] = 0.0
     for label, (args, need) in captured["bwd"].items():
         flags = (need,) if need == (True, True) else (need, (True, True))
         ok, worst, text = compare_k2_bwd(label, *args, flags=flags)
-        err["grid_sample_patch_bwd"] = max(err["grid_sample_patch_bwd"],
-                                           worst)
+        err[key] = max(err[key], worst)
         ok_all &= ok
-        log(f"[2] K2 on captured inputs {tuple(args[1].shape)} x "
+        log(f"[2] {tag}K2 on captured inputs {tuple(args[1].shape)} x "
             f"{args[2].shape[1]}, {text}: {'ok' if ok else 'FAIL'}")
     args = captured["bwd2"]
     flags_ok = tuple(args[-1]) == (True, True, False) and args[3] is None
-    log(f"[2] K2 double backward of the smooth step on the latent: need "
+    log(f"[2] {tag}K2 double backward of the smooth step on the latent: need "
         f"(d g, d image, d coords) = {tuple(map(int, args[-1]))}, gg image "
         f"{'none' if args[3] is None else 'given'}: "
         f"{'ok' if flags_ok else 'FAIL'}")
     ok_all &= flags_ok
+    key = ("grid_sample_patch_bwd2", "latent")
+    err[key] = 0.0
     for need in (tuple(args[-1]), (True, True, True)):
         run = (*args[:-1], need)
         with uncounted():
@@ -549,10 +611,10 @@ def compare_captured(captured):
         ok, worst, text = rel_errors(
             k, gs.grid_sample_patch_double_backward_plain(*run),
             ("d_g", "d_image", "d_coords"))
-        err["grid_sample_patch_bwd2"] = max(err["grid_sample_patch_bwd2"],
-                                            worst)
+        err[key] = max(err[key], worst)
         ok_all &= ok
-        log(f"[2] K2 on captured inputs, smooth step bwd2, need "
+        log(f"[2] {tag}K2 on captured inputs {tuple(args[1].shape)} x "
+            f"{args[2].shape[1]}, smooth step bwd2, need "
             f"{tuple(map(int, need))}: {text}: {'ok' if ok else 'FAIL'}")
     if not ok_all:
         raise SystemExit(1)
@@ -660,7 +722,7 @@ def breakdown(renderer, smpl, item, k, unprofiled_ms):
     from mpsnerf_torch.eval.runner import view_rays
 
     dev = renderer.device
-    rays = view_rays(item, k, dev)[0]
+    rays = view_rays(item, k, dev, item["mask_at_box_all"][k])[0]
     sp = tp = renderer._device_side(item)
     latent = renderer._latent_for(item, sp)
     if not latent.is_contiguous(memory_format=torch.channels_last):
@@ -699,20 +761,22 @@ def breakdown(renderer, smpl, item, k, unprofiled_ms):
     with uncounted(), profile(activities=[ProfilerActivity.CPU,
                                           ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        renderer.render_view(item, item, k)
+        pending = renderer.render_view_async(item, item, k)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        renderer.finish_view(pending)
     rows = device_rows(prof)
     log_profile("4", f"view {k}", rows, wall_ms, unprofiled_ms,
                 ("nearest_vertex", "grid_sample"))
     return sum(e.count for e in rows)
 
 
-def compare_training(dev):
+def compare_training(dev, n_importance=0):
     """One plain and one smooth training loss at 64^2 on the CPU and on
-    the card with the same weights, rays and smooth delta (perturb 0):
-    loss terms to 1e-4, every parameter gradient to 1e-3 of its tensor's
-    max |grad|."""
+    the card with the same weights, rays and smooth delta (perturb 0, so
+    the importance samples of ``n_importance`` are deterministic): loss
+    terms to 1e-4, every parameter gradient to 1e-3 of its tensor's max
+    |grad|."""
     import torch
 
     from mpsnerf_torch.data import to_device_input
@@ -724,9 +788,9 @@ def compare_training(dev):
     ds = SyntheticHumanDataset(n_poses=1, n_cameras=4, image_size=64,
                                n_verts=6890, split="train", n_rays=32)
     item = ds.get_item(0, instance_idx=0)
-    cfg = TrainConfig(perturb=0.0)
+    cfg = TrainConfig(perturb=0.0, n_importance=n_importance)
     base = seeded_model("cpu")
-    delta = 0.01 * torch.randn(32 * cfg.n_samples, 3,
+    delta = 0.01 * torch.randn(32 * (cfg.n_samples + n_importance), 3,
                                generator=torch.Generator().manual_seed(1))
     res = {}
     with uncounted():
@@ -753,12 +817,57 @@ def compare_training(dev):
                    / max(float(ga[n].abs().max()), 1e-30) for n in ga)
         ok = terr <= 1e-4 and gerr <= 1e-3 and ta["n_dropped"] == 0
         ok_all &= ok
-        log(f"[3] 64^2 {'smooth' if smooth else 'plain'} train loss cuda vs "
-            f"cpu: total {tb['total']:.6f}/{ta['total']:.6f}, max|term diff| "
+        log(f"[3] 64^2 {'smooth' if smooth else 'plain'} train loss "
+            f"(n_importance {n_importance}) cuda vs cpu: total {tb['total']:.6f}/{ta['total']:.6f}, max|term diff| "
             f"{terr:.3g}, max grad diff / tensor max {gerr:.3g}, normal "
             f"losses {tb['normal_smooth']:.4g}/{tb['smpl_normal']:.4g}: "
             f"{'ok' if ok else 'FAIL'}")
     if not ok_all:
+        raise SystemExit(1)
+
+
+def eval_args():
+    """The eval entry point's ``args``: the flagship config as the port's
+    parser reads it (``N_samples 128``, ``chunk 12000``)."""
+    import pathlib
+
+    from mpsnerf_torch.config import parse_args
+
+    config = pathlib.Path(__file__).resolve().parent / "configs"
+    return parse_args(["--config",
+                       str(config / "canonical_transformer.txt")])
+
+
+def compare_synthetic_eval(small, cpu_model, gpu_model, dev):
+    """``run_synthetic_eval`` at 64^2 on the CPU and on the card with the
+    same weights: every per-image metric to 1e-4 relative."""
+    import tempfile
+
+    import numpy as np
+
+    from mpsnerf_torch.eval.runner import run_synthetic_eval
+
+    res = {}
+    with uncounted(), tempfile.TemporaryDirectory() as tmp:
+        for name, model, device in (("cpu", cpu_model, "cpu"),
+                                    ("cuda", gpu_model, dev)):
+            rig = small.smpl_for(0, device=device)
+            res[name] = run_synthetic_eval(
+                eval_args(), model, lambda g, rig=rig: rig,
+                f"{tmp}/{name}", small, verbose=False, device=device)
+    keys = [f"{p}_{m}" for p in ("novel_pose", "novel_view")
+            for m in ("mse", "psnr", "ssim")]
+    err = max(float(np.max(np.abs(res["cuda"][k] - res["cpu"][k])
+                           / np.maximum(np.abs(res["cpu"][k]), 1e-30)))
+              for k in keys)
+    ok = err <= 1e-4 and all(np.isfinite(res["cuda"][k]).all() for k in keys)
+    log(f"[3] 64^2 run_synthetic_eval cuda vs cpu: psnr "
+        f"{res['cuda']['novel_view_mean_human'][1]:.4f}/"
+        f"{res['cpu']['novel_view_mean_human'][1]:.4f} (novel view), "
+        f"{res['cuda']['novel_pose_mean_human'][1]:.4f}/"
+        f"{res['cpu']['novel_pose_mean_human'][1]:.4f} (novel pose); max "
+        f"relative metric diff {err:.3g}: {'ok' if ok else 'FAIL'}")
+    if not ok:
         raise SystemExit(1)
 
 
@@ -876,12 +985,275 @@ def train_full_width(dev):
     return launches, records, capture_train_inputs(trainer, smpl, items[1])
 
 
+def timed_eval(args, model, smpl, ds, dev, pipelined):
+    """``run_synthetic_eval`` into a temporary directory, pipelined (as
+    it runs) or with the protocol's sequential loop; returns (the metrics,
+    seconds inside the protocol, launches, the files written: path ->
+    SHA-256 of the bytes)."""
+    import hashlib
+    import os
+    import tempfile
+
+    import torch
+
+    from mpsnerf_torch.eval import runner
+
+    protocol = runner.evaluate_novel_view_pose
+    spent = {}
+
+    def timed(*a, render_async=None, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = protocol(*a, render_async=render_async if pipelined else None,
+                       **kw)
+        torch.cuda.synchronize()
+        spent["s"] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runner.evaluate_novel_view_pose = timed
+        try:
+            reset_counts()
+            metric = runner.run_synthetic_eval(args, model, lambda g: smpl,
+                                               tmp, ds, verbose=False,
+                                               device=dev)
+            launches = read_counts()
+        finally:
+            runner.evaluate_novel_view_pose = protocol
+        files = {}
+        for d, _, fs in os.walk(tmp):
+            for f in fs:
+                with open(os.path.join(d, f), "rb") as fh:
+                    files[os.path.relpath(os.path.join(d, f), tmp)] = \
+                        hashlib.sha256(fh.read()).hexdigest()
+    return metric, spent["s"], launches, files
+
+
+def capture_fallback_chunk(renderer, item, k):
+    """K1's and K2 forward's inputs in one chunk of view ``k`` rendered as
+    the chunked path's overflow fallback renders it (uncompacted: every
+    point runs the single-phase 1-NN and the tail): the first chunk of the
+    shuffled box-hit rays, and of each kernel's calls the largest (the
+    fine pass, at ``n_samples + n_importance`` points a ray)."""
+    import numpy as np
+    import torch
+
+    from mpsnerf_torch.ops import grid_sample as gs
+    from mpsnerf_torch.ops import knn
+
+    calls = {"knn": {}, "fwd": {}}
+    wrapped_fwd, wrapped_knn = gs.grid_sample_patch_fwd_cuda, \
+        knn.nearest_vertex_cuda
+
+    def spy_knn(query, verts, buckets=None, pairs=None):
+        label = "fallback canonical" if buckets is not None else \
+            "fallback mask"
+        old = calls["knn"].get(label)
+        if old is None or query.shape[0] >= old[0].shape[0]:
+            calls["knn"][label] = (query.clone(), verts.clone(), buckets)
+        return wrapped_knn(query, verts, buckets, pairs)
+
+    def spy_fwd(image, coords):
+        label = "fallback " + ("latent" if image.shape[1] > 3 else "rgb")
+        old = calls["fwd"].get(label)
+        if old is None or coords.shape[1] >= old[1].shape[1]:
+            calls["fwd"][label] = (image, coords.clone())
+        return wrapped_fwd(image, coords)
+
+    smpl, sp, tp, latent, rays, _, _ = renderer._prep_view(
+        item, item, k, renderer._view_ray_mask(item, k))
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(
+        rays[0].shape[0])[:renderer.chunk]).to(rays[0].device)
+    try:
+        gs.grid_sample_patch_fwd_cuda = spy_fwd
+        knn.nearest_vertex_cuda = spy_knn
+        with uncounted(), torch.no_grad():
+            renderer._chunk(renderer._model_nc, smpl, sp, tp, latent,
+                            [x[perm] for x in rays])
+            torch.cuda.synchronize()
+    finally:
+        gs.grid_sample_patch_fwd_cuda = wrapped_fwd
+        knn.nearest_vertex_cuda = wrapped_knn
+    return calls
+
+
+def eval_full_width(dev, ds, smpl):
+    """Phase 8: the eval entry point at full width.  Returns the launches
+    of its runs (``eval``: run_synthetic_eval, pipelined; ``hier_plain``
+    and ``hier_smooth``: train steps at n_importance 64) and the worst
+    abs error of each kernel on the inputs these paths gave it."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from mpsnerf_torch.data import to_device_input
+    from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
+    from mpsnerf_torch.eval.runner import ViewRenderer
+    from mpsnerf_torch.train.trainer import TrainConfig, Trainer
+
+    args = eval_args()
+    if (args.N_samples, args.chunk, args.N_importance) != (128, 12000, 0):
+        fail(f"[8] configs/canonical_transformer.txt parsed to N_samples "
+             f"{args.N_samples}, chunk {args.chunk}, N_importance "
+             f"{args.N_importance}: FAIL")
+    model = seeded_model(dev)
+    out = {}
+    runs = {}
+    for pipelined in (True, False):
+        metric, secs, launches, files = timed_eval(args, model, smpl, ds,
+                                                   dev, pipelined)
+        runs[pipelined] = (metric, secs, files)
+        n_views = (metric["novel_pose_psnr"].size
+                   + metric["novel_view_psnr"].size)
+        finite = all(np.isfinite(metric[f"{p}_{m}"]).all()
+                     for p in ("novel_pose", "novel_view")
+                     for m in ("mse", "psnr", "ssim"))
+        pngs = [f for f in files if f.endswith(".png")]
+        ok = (finite and n_views == 6 and len(pngs) == 12
+              and "metrics.json" in files and "metrics.npy" in files
+              and all(launches[k] > 0 for k in ("nearest_vertex",
+                                                "vertex_buckets",
+                                                "grid_sample_patch_fwd")))
+        mode = "pipelined" if pipelined else "sequential"
+        if pipelined:
+            out["eval"] = launches
+        log(f"[8] run_synthetic_eval ({mode}): {n_views} views (3 novel "
+            f"pose, 3 novel view) in {secs:.2f} s inside the protocol, "
+            f"{1e3 * secs / n_views:.1f} ms per image; "
+            f"psnr {metric['novel_pose_mean_human'][1]:.3f} (novel pose) / "
+            f"{metric['novel_view_mean_human'][1]:.3f} (novel view), ssim "
+            f"{metric['novel_pose_mean_human'][2]:.4f} / "
+            f"{metric['novel_view_mean_human'][2]:.4f}; launches per view: K1 "
+            f"{launches['nearest_vertex'] / n_views:.1f}, bucket builds "
+            f"{launches['vertex_buckets'] / n_views:.1f}, K2 forward "
+            f"{launches['grid_sample_patch_fwd'] / n_views:.1f}; "
+            f"{len(pngs)} PNGs, metrics.json and metrics.npy written: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(1)
+    (mp, sp_, fp), (ms, ss, fs) = runs[True], runs[False]
+    same_metrics = mp.keys() == ms.keys() and all(
+        np.array_equal(np.asarray(mp[k]), np.asarray(ms[k])) for k in mp)
+    same_files = fp == fs
+    ok = same_metrics and same_files
+    log(f"[8] pipelined {sp_:.2f} s against sequential {ss:.2f} s; every "
+        f"metric array equal {same_metrics}; the {len(fp)} files (12 PNGs, "
+        f"metrics.json, metrics.npy) byte-equal {same_files}: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(1)
+
+    # the async handles against the synchronous render: views 1 and 3 on
+    # the eval's renderer (the global path), two handles in flight
+    item = ds.get_item(0, instance_idx=0)
+    r = ViewRenderer(model, lambda g: smpl, chunk=min(args.chunk, 8192),
+                     n_samples=args.N_samples, device=dev)
+    with uncounted():
+        sync = [r.render_view(item, item, k) for k in (1, 3)]
+        handles = [r.render_view_async(item, item, k) for k in (1, 3)]
+        on_card = all(h.done is None and all(
+            isinstance(x, torch.Tensor)
+            and x.device.type == torch.device(dev).type for x in h.out)
+            for h in handles)
+        equal = [bool(np.array_equal(r.finish_view(h), img))
+                 for h, img in zip(handles, sync)]
+    ok = on_card and all(equal) and not np.array_equal(sync[0], sync[1])
+    log(f"[8] views 1 and 3, two async handles in flight (device outputs "
+        f"held until finished {on_card}) against render_view: images "
+        f"equal {equal}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(1)
+
+    # view 1 on the chunked path against the global path
+    views = {}
+    fallback = None
+    for label, opts in (("global", {}),
+                        ("chunked", dict(global_compact=False)),
+                        ("chunked n_importance 64",
+                         dict(global_compact=False, n_importance=64))):
+        r = ViewRenderer(model, lambda g: smpl, chunk=args.chunk,
+                         n_samples=args.N_samples, device=dev, **opts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rgb = r.render_view(item, item, 1)
+        secs = time.perf_counter() - t0
+        st = r.last_view
+        views[label] = rgb
+        log(f"[8] view 1, {label} (chunk {r.chunk}): {1e3 * secs:.1f} ms, "
+            f"hit rays {st.hit_rays}, overflow chunks {st.n_overflow_chunks} "
+            f"({st.n_dropped} points dropped and rendered again "
+            f"uncompacted), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, acc>0.5 "
+            f"on {100 * float((st.acc > 0.5).mean()):.2f} % of pixels, finite "
+            f"{bool(np.isfinite(rgb).all())}")
+        if not np.isfinite(rgb).all():
+            fail("[8] non-finite pixels: FAIL")
+        if opts.get("n_importance"):
+            fallback = capture_fallback_chunk(r, item, 1)
+        del r
+    px = float(np.abs(views["chunked"] - views["global"]).max())
+    log(f"[8] view 1 chunked against global: max|pixel diff| {px:.3g}: "
+        f"{'ok' if px <= 1e-4 else 'FAIL'}")
+    if px > 1e-4:
+        raise SystemExit(1)
+    del views
+    torch.cuda.empty_cache()
+    # the kernels on the inputs of a fallback chunk at n_importance 64
+    errs = compare_captured(fallback, tag="n_importance 64 ", emulate=False)
+    del fallback
+
+    # one smooth and two plain steps at n_importance 64
+    tds = SyntheticHumanDataset(n_poses=1, n_cameras=4, image_size=512,
+                                n_verts=6890, split="train", n_rays=1000)
+    titem = to_device_input(tds.get_item(0, instance_idx=0), dev, rays=True)
+    tsmpl = tds.smpl_for(0, device=dev)
+    trainer = Trainer(seeded_model(dev), TrainConfig(n_importance=64),
+                      device=dev, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(3):
+        smooth = trainer.smooth_now()
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        terms, psnr = trainer.view_step(tsmpl, titem, titem, s)
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        finite = all(math.isfinite(float(t)) for t in terms)
+        need = ["nearest_vertex", "vertex_buckets", "grid_sample_patch_fwd",
+                "grid_sample_patch_bwd"] + (["grid_sample_patch_bwd2"]
+                                            if smooth else [])
+        ok = finite and all(launches[k] > 0 for k in need)
+        kind = "smooth" if smooth else "plain"
+        out.setdefault(f"hier_{kind}", launches)
+        log(f"[8] n_importance 64 {kind} step {s}: "
+            f"{start.elapsed_time(end):.1f} ms (CUDA events), loss "
+            f"{float(terms.total):.5f}, psnr {float(psnr):.2f}, n_dropped "
+            f"{float(terms.n_dropped):g}, finite {finite}; launches "
+            f"{json.dumps(launches)}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(1)
+    log(f"[8] peak device memory over the n_importance 64 steps "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # the kernels on the inputs of a plain and a smooth step at
+    # n_importance 64 (K1 and K2 at the union of the samples)
+    captured = capture_train_inputs(trainer, tsmpl, titem)
+    for key, e in compare_captured(captured, tag="n_importance 64 ").items():
+        errs[key] = max(errs.get(key, 0.0), e)
+    return out, errs
+
+
 def capture_train_inputs(trainer, smpl, item):
-    """The inputs of K1 and of the latent's K2 backward and double backward
-    as one plain and one smooth step give them (real points project onto
-    clustered pixels, unlike the uniform coords of phase 2): K1's two calls
-    of the plain step (the 5 cm mask against the posed vertices, the
-    canonical lookup against ``t_vertices``); K2's backward of the plain
+    """The inputs of K1 and of the latent's K2 forward, backward and double
+    backward as one plain and one smooth step give them (real points
+    project onto clustered pixels, unlike the uniform coords of phase 2):
+    K1's two calls of the plain step's last query (the 5 cm mask against
+    the posed vertices, the canonical lookup against ``t_vertices``; with
+    ``n_importance`` the fine pass, at the union of the samples); the
+    latent's forward of each step's last query; K2's backward of the plain
     step, of the smooth step's inner normal gradients and of its outer
     backward, with the flags each asked for; the smooth step's first
     double backward with its flags.  Copied for phase 2's comparison and
@@ -892,8 +1264,9 @@ def capture_train_inputs(trainer, smpl, item):
     from mpsnerf_torch.ops import knn
 
     step = {"smooth": False}
-    bwd, bwd2, nn = {}, [], {}
-    wrapped = {"grid_sample_patch_bwd_cuda": gs.grid_sample_patch_bwd_cuda,
+    fwd, bwd, bwd2, nn = {}, {}, [], {}
+    wrapped = {"grid_sample_patch_fwd_cuda": gs.grid_sample_patch_fwd_cuda,
+               "grid_sample_patch_bwd_cuda": gs.grid_sample_patch_bwd_cuda,
                "grid_sample_patch_bwd2_cuda": gs.grid_sample_patch_bwd2_cuda}
     wrapped_knn = knn.nearest_vertex_cuda
 
@@ -902,6 +1275,12 @@ def capture_train_inputs(trainer, smpl, item):
         return [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
                                     device=t.device).copy_(t)
                 if isinstance(t, torch.Tensor) else t for t in tensors]
+
+    def spy_fwd(image, coords):
+        if image.shape[1] > 3:
+            label = "smooth step" if step["smooth"] else "plain step"
+            fwd[label] = keep((image, coords))
+        return wrapped["grid_sample_patch_fwd_cuda"](image, coords)
 
     def spy_bwd(g, image, coords, need_image, need_coords):
         need = (need_image, need_coords)
@@ -920,12 +1299,12 @@ def capture_train_inputs(trainer, smpl, item):
         if not step["smooth"]:
             label = "train canonical" if buckets is not None else \
                 "train mask"
-            nn.setdefault(label, (query.clone(), verts.clone(), buckets))
+            nn[label] = (query.clone(), verts.clone(), buckets)
         return wrapped_knn(query, verts, buckets, pairs)
 
     try:
-        gs.grid_sample_patch_bwd_cuda = spy_bwd
-        gs.grid_sample_patch_bwd2_cuda = spy_bwd2
+        for name, spy in zip(wrapped, (spy_fwd, spy_bwd, spy_bwd2)):
+            setattr(gs, name, spy)
         knn.nearest_vertex_cuda = spy_knn
         with uncounted():
             for smooth in (False, True):
@@ -937,7 +1316,7 @@ def capture_train_inputs(trainer, smpl, item):
         for name, fn in wrapped.items():
             setattr(gs, name, fn)
         knn.nearest_vertex_cuda = wrapped_knn
-    return {"bwd": bwd, "bwd2": bwd2, "knn": nn}
+    return {"fwd": fwd, "bwd": bwd, "bwd2": bwd2, "knn": nn}
 
 
 def _bwd_work(v, c, h, w, n, need):
@@ -1419,7 +1798,7 @@ def main(argv=None):
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--stop-after", type=int, default=8,
+    ap.add_argument("--stop-after", type=int, default=9,
                     help="end after this phase (no result lines)")
     stop_after = ap.parse_args(argv).stop_after
 
@@ -1504,7 +1883,8 @@ def main(argv=None):
     attach_body_grid(item)
     tp = to_device_input(item, dev)
     fine_q, fine_v = fine_prepass_inputs(
-        smpl, tp, view_rays(item, 1, dev)[0], n_samples, tile)
+        smpl, tp, view_rays(item, 1, dev, item["mask_at_box_all"][1])[0],
+        n_samples, tile)
     compare_buckets("posed rig (fine pre-pass)", fine_v)
     fine_b = knn.build_vertex_buckets(fine_v)
     perm = torch.randperm(fine_q.shape[0],
@@ -1529,26 +1909,38 @@ def main(argv=None):
     s_item = small.get_item(0, instance_idx=0)
     cpu_model = seeded_model("cpu")
     gpu_model = copy.deepcopy(cpu_model).to(dev)
-    outs = {}
-    with uncounted():
-        for name, model, device in (("cpu", cpu_model, "cpu"),
-                                    ("cuda", gpu_model, dev)):
-            it = copy.deepcopy(s_item)
-            rig = small.smpl_for(0, device=device)
-            r = ViewRenderer(model, lambda g, rig=rig: rig,
-                             n_samples=n_samples, tile=4096, device=device)
-            outs[name] = r.render_view(it, it, 3)
-    a, b = outs["cpu"], outs["cuda"]
-    px = float((a.rgb - b.rgb.cpu()).abs().max())
-    ok = (px <= 1e-4 and a.n_dropped == b.n_dropped == 0
-          and a.n_body == b.n_body and a.n_candidates == b.n_candidates)
-    log(f"[3] 64^2 slice cuda vs cpu: max|pixel diff| {px:.3g}, n_dropped "
-        f"{b.n_dropped}/{a.n_dropped}, candidates {b.n_candidates}/"
-        f"{a.n_candidates}, fine n_valid {b.n_body}/{a.n_body}: "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
+    ok_all = True
+    for label, opts in (("global", {}),
+                        ("chunked", dict(global_compact=False)),
+                        ("chunked n_importance 4",
+                         dict(global_compact=False, n_importance=4))):
+        outs = {}
+        with uncounted():
+            for name, model, device in (("cpu", cpu_model, "cpu"),
+                                        ("cuda", gpu_model, dev)):
+                it = copy.deepcopy(s_item)
+                rig = small.smpl_for(0, device=device)
+                r = ViewRenderer(model, lambda g, rig=rig: rig,
+                                 n_samples=n_samples, tile=4096,
+                                 device=device, **opts)
+                outs[name] = (r.render_view(it, it, 3), r.last_view)
+        (a, sa), (b, sb) = outs["cpu"], outs["cuda"]
+        px = float(np.abs(a - b).max())
+        ok = (px <= 1e-4 and sa.n_dropped == sb.n_dropped
+              and sa.n_body == sb.n_body and sa.hit_rays == sb.hit_rays
+              and sa.n_candidates == sb.n_candidates
+              and sa.n_overflow_chunks == sb.n_overflow_chunks)
+        ok_all &= ok
+        log(f"[3] 64^2 {label} render cuda vs cpu: max|pixel diff| {px:.3g}, "
+            f"n_dropped {sb.n_dropped}/{sa.n_dropped}, candidates "
+            f"{sb.n_candidates}/{sa.n_candidates}, fine n_valid {sb.n_body}/"
+            f"{sa.n_body}, overflow chunks {sb.n_overflow_chunks}/"
+            f"{sa.n_overflow_chunks}: {'ok' if ok else 'FAIL'}")
+    if not ok_all:
         return 1
-    compare_training(dev)
+    for n_imp in (0, 4):
+        compare_training(dev, n_imp)
+    compare_synthetic_eval(small, cpu_model, gpu_model, dev)
     if stop_after <= 3:
         return 0
 
@@ -1567,25 +1959,33 @@ def main(argv=None):
         before = read_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        # the view's time: from the request to its image on the device;
+        # the host's fetch and scatter into the full image (finish_view)
+        # are timed apart
         t0 = time.perf_counter()
         start.record()
-        out = renderer.render_view(item, item, k)
+        pending = renderer.render_view_async(item, item, k)
         end.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rgb = renderer.finish_view(pending)
+        finish_ms = (time.perf_counter() - t0) * 1e3
+        out = renderer.last_view
         after = read_counts()
         n_launch = after["nearest_vertex"] - before["nearest_vertex"]
         n_fwd = (after["grid_sample_patch_fwd"]
                  - before["grid_sample_patch_fwd"])
-        opaque = float((out.acc > 0.5).float().mean())
-        finite = bool(torch.isfinite(out.rgb).all())
+        opaque = float((out.acc > 0.5).mean())
+        finite = bool(np.isfinite(rgb).all())
         ok = (out.n_dropped == 0 and finite and opaque > 0.01
               and n_launch >= 2 and n_fwd >= 2
-              and out.rgb.shape == (512 * 512, 3))
+              and rgb.shape == (512 * 512, 3))
         launches.append(n_launch)
         view_ms.append(start.elapsed_time(end))
         log(f"[4] view {k}: {view_ms[-1]:.1f} ms (CUDA events), "
-            f"{wall * 1e3:.1f} ms wall; hit rays {out.hit_rays}, candidates "
+            f"{wall * 1e3:.1f} ms wall, then {finish_ms:.1f} ms to fetch "
+            f"and scatter the image (host); hit rays {out.hit_rays}, candidates "
             f"{out.n_candidates}, capacity {out.capacity}, body points "
             f"{out.n_body}, fine capacity {out.fine_capacity}, knn launches "
             f"{n_launch}, K2 forward launches {n_fwd}, n_dropped "
@@ -1616,11 +2016,11 @@ def main(argv=None):
     train_launches, _, captured = train_full_width(dev)
     captured["knn"] = {**tail_sets, **captured["knn"]}
     # phase 2 on the inputs phases 4 and 5 captured
-    for name, e in compare_captured(captured).items():
-        if name == "nearest_vertex":
+    for key, e in compare_captured(captured).items():
+        if key == "nearest_vertex":
             knn_err = max(knn_err, e)
         else:
-            k2_errs["latent"][name] = max(k2_errs["latent"][name], e)
+            k2_errs[key[1]][key[0]] = max(k2_errs[key[1]][key[0]], e)
 
     # ---- 6. the variant probe
     reset_counts()
@@ -1700,7 +2100,21 @@ def main(argv=None):
             "name": name, "route": "cuda", "source": GS_SOURCE,
             "replaces": GS_REPLACES[name], "launches": train_launches[name],
             "launches_serving": serving_launches[name], **rec})
-    log(f"[7] total {time.perf_counter() - t_start:.0f} s")
+    if stop_after <= 7:
+        return 0
+
+    # ---- 8. the eval entry point at full width
+    eval_launches, eval_errs = eval_full_width(dev, ds, smpl)
+    for rec in records:
+        for run, counts in eval_launches.items():
+            rec[f"launches_{run}"] = counts[rec["name"]]
+        for key, e in eval_errs.items():
+            if key == rec["name"]:
+                rec["max_abs_err"] = max(rec["max_abs_err"], e)
+            elif key[0] == rec["name"]:
+                sub = rec if key[1] == "latent" else rec["rgb"]
+                sub["max_abs_err"] = max(sub["max_abs_err"], e)
+    log(f"[8] total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -102,6 +102,7 @@ class SyntheticHumanDataset:
         self.num_instances = num_instances
         self.input_view = input_views or list(range(min(3, n_cameras)))
         self.output_view = list(range(n_cameras))
+        self.train_view = self.output_view
         self.rng = np.random.default_rng(seed)
 
         self.subjects = []
@@ -123,6 +124,12 @@ class SyntheticHumanDataset:
             _ring_camera(2 * np.pi * i / n_cameras, 2.2, 0.1, self.H, self.W)
             for i in range(n_cameras)
         ]
+
+    def __len__(self):
+        return self.n_poses * self.num_instances
+
+    def __getitem__(self, index: int) -> Dict:
+        return self.get_item(index)
 
     def smpl_for(self, instance_idx: int, device="cuda") -> SMPLModel:
         return self.subjects[instance_idx]["smpl"].to(device)

@@ -1,8 +1,7 @@
 """The flagship generalizable human NeRF (port of
 ``mpsnerf_tpu/models/mps_nerf.py`` at the flagship configuration:
-transformer fusion, appended rgb, human-region sampling with compaction at
-half the query count, no correction or skinning fields, ``mean_shape``
-off, PE-conditioned MLP, fp32).
+transformer fusion, appended rgb, human-region sampling, no correction or
+skinning fields, ``mean_shape`` off, PE-conditioned MLP, fp32).
 
 Per query point (world space, target pose):
   1. world -> target SMPL space;
@@ -28,6 +27,7 @@ skinning field, which this configuration leaves off, so they are absent.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -61,7 +61,6 @@ from mpsnerf_torch.smpl.model import SMPLModel
 
 HUMAN_DIST_THRESHOLD_SQ = 0.05 ** 2  # 5 cm
 MASK_FILL = -80.0
-COMPACT_FRACTION = 0.5  # tail capacity of a query, as a fraction of its points
 NERF_WIDTH, NERF_DEPTH, NERF_SKIPS = 256, 8, (4,)
 
 
@@ -85,10 +84,16 @@ class RawOutput(NamedTuple):
 
 
 class MPSNeRF(nn.Module):
-    """Generalizable human NeRF with LBS canonicalization."""
+    """Generalizable human NeRF with LBS canonicalization.
 
-    def __init__(self):
+    ``compact_fraction``: the tail capacity of a query as a fraction of its
+    points (train batches run ~35-42 % in-body samples, hence 0.5; eval
+    renders use tighter fractions, see ``eval/runner.py``).  None runs the
+    tail on every point, uncompacted (exact at any in-body share)."""
+
+    def __init__(self, compact_fraction: Optional[float] = 0.5):
         super().__init__()
+        self.compact_fraction = compact_fraction
         self.encoder_2d = SpatialEncoder()
         feat_ch = SpatialEncoder.LATENT_CHANNELS + pe_dim(4)  # + PE'd rgb
         self.transformer = ViewFusionTransformer(dim=feat_ch)
@@ -103,6 +108,15 @@ class MPSNeRF(nn.Module):
         self.feature_linear = TorchLinear(w, w)
         self.views_linear = TorchLinear(w + feat_ch, w // 2)
         self.rgb_linear = TorchLinear(w // 2, 3)
+
+    def with_compact_fraction(self, fraction: Optional[float]) -> "MPSNeRF":
+        """The same model at another ``compact_fraction`` (JAX's
+        ``model.clone(compact_fraction=...)``): a shallow copy that shares
+        every parameter, buffer and submodule, so nothing is copied and a
+        later ``.to()`` or weight update reaches both."""
+        view = copy.copy(self)
+        view.compact_fraction = fraction
+        return view
 
     # ---- stage 1: per-view image encoding --------------------------------
 
@@ -165,8 +179,10 @@ class MPSNeRF(nn.Module):
     ) -> RawOutput:
         """Raw (rgb, sigma) and geometry at world points.  Three branches,
         as in the JAX package: caller-supplied nearest-vertex ids (every
-        point in-body), the body-grid cull with compaction, or one exact
-        1-NN over every point.  ``t_buckets``: the 1-NN buckets of
+        point in-body), the body-grid cull with compaction (when compaction
+        is on and the target has a body grid), or one exact 1-NN over every
+        point, compacted unless ``compact_fraction`` is None.
+        ``t_buckets``: the 1-NN buckets of
         ``sp_input["t_vertices"]``; a caller that queries a view tile by
         tile builds them once and passes them, else they are built here,
         once per query (for a CUDA table; a CPU one needs none)."""
@@ -179,13 +195,14 @@ class MPSNeRF(nn.Module):
         smpl_query_pts = world_to_smpl(world_pts, tf_t.R, tf_t.Th)
         q_stop = smpl_query_pts.detach()
 
-        capacity = max(1024, min(int(np.ceil(n * COMPACT_FRACTION / 1024))
-                                 * 1024, n))
+        use_compact = self.compact_fraction is not None
+        capacity = max(1024, min(
+            int(np.ceil(n * (self.compact_fraction or 0) / 1024)) * 1024, n))
         if nn_ids is not None:
             # the caller ran the exact 5 cm cull: every point is in-body
             pts_mask = torch.ones(n, dtype=torch.int32, device=world_pts.device)
             q_pts, q_ids = smpl_query_pts, nn_ids
-        elif "body_grid" in tp_input:
+        elif use_compact and "body_grid" in tp_input:
             cand = grid_lookup(tp_input["body_grid"], q_stop)
             cplan = plan_compaction(cand, capacity)
             tar_smpl_pts = world_to_smpl(tp_input["vertices"], tf_t.R, tf_t.Th)
@@ -201,10 +218,12 @@ class MPSNeRF(nn.Module):
             tar_smpl_pts = world_to_smpl(tp_input["vertices"], tf_t.R, tf_t.Th)
             d2, vert_ids_t = nearest_vertex(q_stop, tar_smpl_pts)
             pts_mask = (d2 < HUMAN_DIST_THRESHOLD_SQ).to(torch.int32)
-            cplan = plan_compaction(pts_mask, capacity)
-            q_pts = compact(cplan, smpl_query_pts)
-            q_ids = compact(cplan, vert_ids_t)
-            viewdirs = compact(cplan, viewdirs)
+            q_pts, q_ids = smpl_query_pts, vert_ids_t
+            if use_compact:
+                cplan = plan_compaction(pts_mask, capacity)
+                q_pts = compact(cplan, smpl_query_pts)
+                q_ids = compact(cplan, vert_ids_t)
+                viewdirs = compact(cplan, viewdirs)
         if cplan is not None:
             n_dropped = torch.clamp(cplan.n_valid - capacity, min=0)
 

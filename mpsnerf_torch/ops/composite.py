@@ -98,3 +98,39 @@ def stratified_z_vals(
         lower = torch.cat([z[..., :1], mids], dim=-1)
         z = lower + (upper - lower) * u
     return z
+
+
+def sample_pdf(
+    bins: torch.Tensor,      # (R, B)
+    weights: torch.Tensor,   # (R, B - 1)
+    n_samples: int,
+    det: bool = False,
+    u: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Hierarchical inverse-CDF sampling, (R, n_samples).  ``det`` places
+    the draws at ``linspace01`` (``jnp.linspace`` bit for bit); otherwise
+    they are ``u`` (R, n_samples) when given, else uniform draws from
+    ``generator``.  ``torch.searchsorted(right=True)`` is JAX's
+    ``side="right"``."""
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    shape = cdf.shape[:-1] + (n_samples,)
+    if det:
+        u = linspace01(n_samples, cdf.dtype, cdf.device).expand(shape)
+    elif u is None:
+        u = torch.rand(shape, generator=generator, dtype=cdf.dtype,
+                       device=cdf.device)
+    u = u.contiguous()
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    cdf_lo = torch.gather(cdf, -1, below)
+    cdf_hi = torch.gather(cdf, -1, above)
+    bin_lo = torch.gather(bins, -1, below)
+    bin_hi = torch.gather(bins, -1, above)
+    denom = cdf_hi - cdf_lo
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    return bin_lo + (u - cdf_lo) / denom * (bin_hi - bin_lo)

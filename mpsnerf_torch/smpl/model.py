@@ -32,6 +32,10 @@ class SMPLModel:
     faces: torch.Tensor        # (F, 3)
     parents: Tuple[int, ...] = ()
 
+    @property
+    def n_verts(self) -> int:
+        return self.v_template.shape[0]
+
     def to(self, device) -> "SMPLModel":
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device)

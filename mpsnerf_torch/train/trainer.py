@@ -1,7 +1,8 @@
 """Training: the per-view optimization step and the host loop (port of
-``mpsnerf_tpu/train/trainer.py`` for the flagship configuration:
-``n_importance = 0``, black background, the acc loss on, no correction,
-consistency, density or pair losses).
+``mpsnerf_tpu/train/trainer.py`` for the flagship configuration: the acc
+loss on, no correction, consistency, density or pair losses; the
+hierarchical pass, occupancy compositing and a white background as
+options).
 
 One optimizer step per output view of a loader item; the step counter
 counts view-steps and sets the learning rate ``lrate * 0.5^(step /
@@ -12,9 +13,10 @@ repeated at points jittered by ``0.01 * N(0, 1)`` and the two occupancy
 normals are compared, which differentiates the normal (a gradient) once
 more.
 
-Randomness is explicit: the stratified jitter ``u`` and the smooth delta
-are drawn from the trainer's ``torch.Generator``, or injected by the
-caller (the parity tests hand in the JAX package's own draws).
+Randomness is explicit: the stratified jitter ``u``, the importance draws
+``u_imp`` and the smooth delta are drawn from the trainer's
+``torch.Generator``, or injected by the caller (the parity tests hand in
+the JAX package's own draws).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import numpy as np
 import torch
 
 from mpsnerf_torch.models.mps_nerf import MPSNeRF, RawOutput
-from mpsnerf_torch.ops.composite import composite_rays, stratified_z_vals
+from mpsnerf_torch.ops.composite import composite_rays
+from mpsnerf_torch.renderer.render import importance_z, query_rays, z_ladder
 from mpsnerf_torch.smpl.model import SMPLModel
 from mpsnerf_torch.train.losses import LossTerms, compute_losses, mse2psnr
 
@@ -38,7 +41,12 @@ class TrainConfig:
     lrate: float = 5e-4
     decay_steps: int = 30000
     n_samples: int = 128
+    # hierarchical pass (NeRF section 5.2): importance samples from the
+    # coarse weights; 0 is the reference's behaviour
+    n_importance: int = 0
     perturb: float = 1.0
+    occupancy: bool = False
+    white_bkgd: bool = False
     smooth_loss: bool = True
     smooth_interval: int = 4
 
@@ -58,39 +66,46 @@ def make_optimizer(model: torch.nn.Module, cfg: TrainConfig):
 
 def make_loss_fn(model: MPSNeRF, cfg: TrainConfig, smooth: bool):
     """The view-step loss: ``(smpl, sp, tp, rays_o, rays_d, near, far,
-    target_rgb, bkgd_msk, u=None, delta=None, generator=None) -> (total,
-    (terms, rgb_map))``.  It runs the model in train mode, so the
-    encoder's BatchNorm statistics move.  ``u`` (R, S) is the stratified
-    jitter (drawn when ``perturb > 0`` and not given); ``delta`` (R*S, 3)
-    the smooth loss's point jitter (drawn when not given)."""
+    target_rgb, bkgd_msk, u=None, delta=None, u_imp=None, generator=None)
+    -> (total, (terms, rgb_map))``.  It runs the model in train mode, so
+    the encoder's BatchNorm statistics move.  ``u`` (R, S) is the
+    stratified jitter (drawn when ``perturb > 0`` and not given); ``u_imp``
+    (R, n_importance) the importance draws (drawn when ``perturb > 0`` and
+    not given); ``delta`` (R * (S + n_importance), 3) the smooth loss's
+    point jitter, applied to the union points (drawn when not given)."""
 
     def loss_fn(smpl: SMPLModel, sp_input, tp_input, rays_o, rays_d, near,
-                far, target_rgb, bkgd_msk, u=None, delta=None,
+                far, target_rgb, bkgd_msk, u=None, delta=None, u_imp=None,
                 generator: Optional[torch.Generator] = None):
         model.train()
         latent = model.encode(sp_input["img_all"])
-        r, n_s = rays_o.shape[0], cfg.n_samples
-        if cfg.perturb > 0.0 and u is None:
-            u = torch.rand(r, n_s, generator=generator, device=rays_o.device)
-        z_vals = stratified_z_vals(near[:, None], far[:, None], n_s,
-                                   cfg.perturb, u)
-        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-        vd = viewdirs[:, None, :].expand(r, n_s, 3).reshape(-1, 3)
-        pts = (rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-               ).reshape(-1, 3)
+        r = rays_o.shape[0]
+        z_vals = z_ladder(near, far, cfg.n_samples, cfg.perturb, u, generator)
 
-        raw: RawOutput = model.query(smpl, sp_input, tp_input, latent, pts,
-                                     vd, compute_normals=smooth)
+        def query(z, normals=False, jitter=None):
+            return query_rays(model, smpl, sp_input, tp_input, latent, rays_o,
+                              rays_d, z, normals, jitter)
+
+        coarse_dropped = None
+        if cfg.n_importance > 0:
+            z_vals, coarse_dropped = importance_z(
+                query, z_vals, rays_d, cfg.n_importance, cfg.perturb,
+                cfg.occupancy, cfg.white_bkgd, u_imp, generator)
+        n_s = z_vals.shape[1]
+        raw: RawOutput = query(z_vals, smooth)
+        if coarse_dropped is not None:
+            raw = raw._replace(n_dropped=raw.n_dropped + coarse_dropped)
         raw_perturbed = None
         if smooth:
             if delta is None:
-                delta = 0.01 * torch.randn(pts.shape, generator=generator,
-                                           device=pts.device)
-            raw_perturbed = model.query(smpl, sp_input, tp_input, latent,
-                                        pts + delta, vd, compute_normals=True)
+                delta = 0.01 * torch.randn(r * n_s, 3, generator=generator,
+                                           device=rays_o.device)
+            raw_perturbed = query(z_vals, True, delta)
 
         out = composite_rays(raw.rgb.reshape(r, n_s, 3),
-                             raw.sigma.reshape(r, n_s), z_vals, rays_d)
+                             raw.sigma.reshape(r, n_s), z_vals, rays_d,
+                             occupancy=cfg.occupancy,
+                             white_bkgd=cfg.white_bkgd)
         terms = compute_losses(out.rgb_map, out.acc_map, target_rgb, bkgd_msk,
                                raw, raw_perturbed)
         return terms.total, (terms, out.rgb_map)

@@ -62,7 +62,8 @@ def setup():
     with torch.no_grad():
         t_latent = t_model.encode(t_inp["img_all"])
 
-    t_rays, _, _ = view_rays(t_item, VIEW, "cpu")  # the box-hit rays
+    t_rays, _, _ = view_rays(t_item, VIEW, "cpu",  # the box-hit rays
+                             t_item["mask_at_box_all"][VIEW])
     return dict(
         item=item, t_item=t_item, smpl=smpl, inp=inp, model=model,
         variables=variables, latent=latent, t_model=t_model, t_inp=t_inp,
@@ -158,12 +159,13 @@ def test_view_renderer_render_view(setup):
     tr = TViewRenderer(s["t_model"], lambda g: s["t_smpl"],
                        n_samples=N_SAMPLES, tile=TILE, device="cpu")
     j = jr.render_view(s["variables"], s["item"], s["item"], VIEW)
-    t = tr.render_view(s["t_item"], s["t_item"], VIEW)
-    assert t.rgb.shape == (64 * 64, 3) and t.n_dropped == 0
+    rgb = tr.render_view(s["t_item"], s["t_item"], VIEW)
+    t = tr.last_view
+    assert rgb.shape == (64 * 64, 3) and t.n_dropped == 0
     assert t.hit_rays == int(s["item"]["mask_at_box_all"][VIEW].sum())
     assert t.capacity % TILE == 0 and t.fine_capacity % TILE == 0
     assert t.n_candidates > t.n_body > 0
-    np.testing.assert_allclose(j, t.rgb.numpy(), atol=1e-4)
+    np.testing.assert_allclose(j, rgb, atol=1e-4)
     # the latent is encoded once and cached on the source item
     cached = s["t_item"]["_latent_cache"]
     tr.render_view(s["t_item"], s["t_item"], VIEW)

@@ -6,6 +6,8 @@ rig of ``tests/test_train.py`` at 64^2 with 32 rays per view and 8 samples;
 weights come from the JAX package's init through
 ``mpsnerf_torch.compat.from_jax``."""
 
+import dataclasses
+
 import cv2
 import jax
 import jax.numpy as jnp
@@ -52,10 +54,10 @@ def scene():
     j_smpl = ds.smpl_for(0)
     inp = j_trainer.to_device_input(item)
     model = JMPSNeRF(num_instances=1)
-    variables = model.init(
-        {"params": jax.random.PRNGKey(0)}, j_smpl, inp, inp,
-        jnp.zeros((8, 3)), jnp.zeros((8, 3)), train=False,
-    )
+    # jitted: one compile instead of ~20 s of op-by-op dispatch
+    variables = jax.jit(lambda key: model.init(
+        {"params": key}, j_smpl, inp, inp, jnp.zeros((8, 3)),
+        jnp.zeros((8, 3)), train=False))(jax.random.PRNGKey(0))
     # the model-level tests feed the JAX item's arrays to both packages:
     # the port's own item differs by fp32 posing (~2e-7), and the random
     # faces of the synthetic rig include near-degenerate triangles whose
@@ -381,6 +383,69 @@ def test_view_step_loss_and_gradients_match_jax(scene, smooth, grad_tol,
         if "running" in name:
             np.testing.assert_allclose(sd[name].numpy(), stats[name].numpy(),
                                        atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("smooth,perturb,grad_tol",
+                         [(False, 1.0, 1e-4), (True, 0.0, 1e-3)])
+def test_hierarchical_view_step_matches_jax(scene, smooth, perturb, grad_tol):
+    """A plain and a smooth view-step with the hierarchical pass
+    (``n_importance`` 4), with the JAX key's own draws injected
+    (``split(key, 3)``: the stratified jitter, the smooth delta over the
+    union points, the importance draws): loss terms at atol 1e-5
+    (n_dropped equal) and every parameter gradient within ``grad_tol`` of
+    its tensor's max |grad|, as in the step without the pass.  The smooth
+    step runs at perturb 0: with random importance draws its first layers'
+    gradients move by ~3e-3, because the two packages' coarse weights
+    differ by fp32 rounding, the inverse CDF moves a draw by up to 1e-3
+    where the CDF is flat, and the PE's high frequencies carry that into
+    the normal's gradient (with the same weights the importance z are
+    equal)."""
+    model, variables, inp = scene["model"], scene["variables"], scene["inp"]
+    n_imp = 4
+    cfg = j_trainer.TrainConfig(n_samples=N_SAMPLES, n_importance=n_imp,
+                                perturb=perturb)
+    key = jax.random.PRNGKey(11)
+    rays = (inp["ray_o_all"][0], inp["ray_d_all"][0], inp["near_all"][0][:, 0],
+            inp["far_all"][0][:, 0], inp["rgb_all"][0], inp["bkgd_msk_all"][0])
+    loss = j_trainer.make_loss_fn(model, cfg, smooth)
+    grads, (terms, _, _) = jax.grad(
+        lambda p: loss(p, variables["batch_stats"], scene["j_smpl"], inp,
+                       inp, *rays, key), has_aux=True)(variables["params"])
+    k_z, k_delta, k_imp = jax.random.split(key, 3)
+
+    def draw(fn, k, shape):
+        return torch.from_numpy(np.array(fn(k, shape, jnp.float32)))
+
+    t_model = _port_model(scene)
+    t_inp = scene["t_inp"]
+    t_cfg = t_trainer.TrainConfig(n_samples=N_SAMPLES, n_importance=n_imp,
+                                  perturb=perturb)
+    total, (t_terms, _) = t_trainer.make_loss_fn(t_model, t_cfg, smooth)(
+        scene["t_smpl"], t_inp, t_inp, *t_trainer.train_rays(t_inp, 0, "cpu"),
+        u=draw(jax.random.uniform, k_z, (N_RAYS, N_SAMPLES)),
+        u_imp=draw(jax.random.uniform, k_imp, (N_RAYS, n_imp)),
+        delta=0.01 * draw(jax.random.normal, k_delta,
+                          (N_RAYS * (N_SAMPLES + n_imp), 3)))
+    total.backward()
+    for f in terms._fields:
+        np.testing.assert_allclose(float(getattr(terms, f)),
+                                   float(getattr(t_terms, f).detach()),
+                                   atol=1e-5, err_msg=f)
+    assert (float(t_terms.smpl_normal) > 0) == smooth
+    want = from_jax({"params": _np(grads),
+                     "batch_stats": scene["vnp"]["batch_stats"]})
+    for name, p in t_model.named_parameters():
+        g = want[name].numpy()
+        err = np.abs(p.grad.numpy() - g).max() / max(np.abs(g).max(), 1e-30)
+        assert err <= grad_tol, (name, err)
+
+
+def test_train_config_matches_jax_defaults():
+    """The port's TrainConfig fields take the JAX package's defaults."""
+    j = dataclasses.asdict(j_trainer.TrainConfig())
+    t = dataclasses.asdict(t_trainer.TrainConfig())
+    assert t.items() <= j.items()
+    assert {"n_importance", "occupancy", "white_bkgd"} <= t.keys()
 
 
 def test_smooth_step_double_backward_computes_only_what_it_reads(
