@@ -5,7 +5,8 @@
 
 Phases (each prints progress lines ending in ok/FAIL; any failure exits
 non-zero):
-  1. the card's name and power limit; build every CUDA kernel from
+  1. the card's name and power limit, and whether PIL imports (the
+     loaders' JPEG decoder; PNG needs none); build every CUDA kernel from
      ``mpsnerf_torch/csrc`` (one nvcc per source, all started together);
      count the 1-NN kernels' instructions per pair in their SASS (fails
      where they differ from what the bounds assume);
@@ -80,14 +81,36 @@ non-zero):
      of that view rendered as the overflow fallback does (uncompacted, 2.3M
      points), and K1, K2 forward, backward and double backward on a plain
      and a smooth step at ``n_importance`` 64;
+  9. the training CLI at full width: a THuman-layout fixture in a
+     temporary directory (24 ring cameras with distortion, the 6890-vertex
+     synthetic rig posed and rendered, images and masks as PNG by the
+     port's writer, ``annots.npy``, ``new_vertices/``, ``new_params/``,
+     ``X_vertices.npy``, ``data/THuman_1_human_list.txt`` whose 25
+     training names are all the 512^2 subject and whose name 25 is a 256^2
+     held-out one); ``run_nerf_batch_torch.main`` with
+     ``configs/canonical_transformer.txt`` and ``--batch_size 1`` for 3
+     items with the loader's 4 threads (checkpoints every 24 view-steps),
+     then with ``--resume_optimizer 1`` for one more, then with
+     ``--num_worker 0`` (items loaded in the loop) for two more; every
+     view-step timed by CUDA events (one synchronisation a step) with
+     finite terms and nothing dropped, parameters that change between
+     checkpoints, the resumed step and Adam state equal to the
+     checkpoint's (and fresh after a resume without the flag), the files
+     under the JAX CLI's names, K1 and K2 launched; the host loader's ms
+     per train item alone; ``run_thuman_eval`` on the saved weights cut to 1
+     held-out human, 1 pose a pass, 256^2 (16 images: finite metrics, 34
+     files); then phase 2's comparisons on a plain and a smooth step of
+     this path;
   then one ``{"kernels": [...]}`` line: each kernel's record from phase 7
      with its launches on each path (``launches``: phase 5;
      ``launches_serving``: phase 4; ``launches_eval``,
-     ``launches_hier_plain``, ``launches_hier_smooth``: phase 8);
-  9. the device line, last.
+     ``launches_hier_plain``, ``launches_hier_smooth``: phase 8;
+     ``launches_cli``, ``launches_cli_eval``: phase 9);
+  10. the device line, last.
 
-Launch counts are set to 0 just before each path (phases 4, 5, 6, 8) and
-read just after; launches made to compare or time a kernel do not count.
+Launch counts are set to 0 just before each path (phases 4, 5, 6, 8, 9)
+and read just after; launches made to compare or time a kernel do not
+count.
 ``--stop-after N`` ends the run after phase N (a short check of a new
 kernel); it then prints no result lines.
 Weights are random, from seed 0, with the density head's bias set to +4 so
@@ -1277,9 +1300,11 @@ def capture_train_inputs(trainer, smpl, item):
                 if isinstance(t, torch.Tensor) else t for t in tensors]
 
     def spy_fwd(image, coords):
+        label = "smooth step" if step["smooth"] else "plain step"
         if image.shape[1] > 3:
-            label = "smooth step" if step["smooth"] else "plain step"
             fwd[label] = keep((image, coords))
+        elif not step["smooth"]:
+            fwd["plain step rgb"] = keep((image, coords))
         return wrapped["grid_sample_patch_fwd_cuda"](image, coords)
 
     def spy_bwd(g, image, coords, need_image, need_coords):
@@ -1317,6 +1342,325 @@ def capture_train_inputs(trainer, smpl, item):
             setattr(gs, name, fn)
         knn.nearest_vertex_cuda = wrapped_knn
     return {"fwd": fwd, "bwd": bwd, "bwd2": bwd2, "knn": nn}
+
+
+# ---- phase 9: the CLI on a THuman-layout fixture ---------------------------
+
+THUMAN_D = [-0.11, 0.05, 0.0006, -0.0004, -0.008]  # (k1, k2, p1, p2, k3)
+
+
+def write_thuman_subject(root, size, n_frames, frame_of_pose, n_verts):
+    """A THuman-layout subject rendered from the synthetic scene (24 ring
+    cameras, the ``n_verts``-vertex rig of seed 0, the gender-0 rig of
+    ``load_smpl_models``): ``annots.npy`` with distortion, per frame the
+    24 images and masks as PNG (the port's writer), ``new_vertices/`` and
+    ``new_params/``, and ``X_vertices.npy``.  Pose entry p of ``annots``
+    shows frame ``frame_of_pose(p)``."""
+    import os
+
+    import numpy as np
+
+    from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
+    from mpsnerf_torch.eval.protocol import encode_png, to8b
+
+    ds = SyntheticHumanDataset(n_poses=n_frames, n_cameras=24,
+                               input_views=list(range(24)), image_size=size,
+                               n_verts=n_verts, split="train", n_rays=8)
+    for sub in ("new_vertices", "new_params"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for f in range(n_frames):
+        item = ds.get_item(f, instance_idx=0)
+        for v in range(24):
+            for sub, img in (("", np.transpose(item["img_all"][v], (1, 2, 0))),
+                             ("mask_cihp", item["msk_all"][v] > 0)):
+                path = os.path.join(root, sub, f"{v:02d}", f"{f}.png")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                with open(path, "wb") as fh:
+                    fh.write(encode_png(to8b(img.astype(np.float32))))
+        np.save(os.path.join(root, "new_vertices", f"{f}.npy"),
+                item["vertices"])
+        np.save(os.path.join(root, "new_params", f"{f}.npy"),
+                dict(item["params"]))
+        if f == 0:
+            np.save(os.path.join(root, "X_vertices.npy"), item["t_vertices"])
+    cams = {"K": [c[0] for c in ds.cameras],
+            "D": [np.array(THUMAN_D) for _ in ds.cameras],
+            "R": [c[1] for c in ds.cameras], "T": [c[2] for c in ds.cameras]}
+    n_poses = 1 + max(frame_of_pose.keys())
+    ims = [{"ims": [f"{v:02d}/{frame_of_pose.get(p, 0)}.png"
+                    for v in range(24)]} for p in range(n_poses)]
+    np.save(os.path.join(root, "annots.npy"), {"cams": cams, "ims": ims})
+
+
+class step_timer:
+    """Times every ``Trainer.view_step`` by CUDA events (one
+    synchronisation a step) and keeps its flags and terms."""
+
+    def __init__(self, sync=True):
+        self.records, self.sync = [], sync
+
+    def __enter__(self):
+        import torch
+
+        from mpsnerf_torch.train.trainer import Trainer
+
+        self.orig = Trainer.view_step
+        timer = self
+
+        def timed(trainer, *a, **k):
+            smooth = trainer.smooth_now()
+            if timer.sync:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            terms, psnr = timer.orig(trainer, *a, **k)
+            if timer.sync:
+                end.record()
+                torch.cuda.synchronize()
+                ms = start.elapsed_time(end)
+            else:
+                ms = (time.perf_counter() - t0) * 1e3
+            timer.records.append({"smooth": smooth, "ms": ms,
+                                  "terms": terms, "psnr": psnr})
+            return terms, psnr
+
+        Trainer.view_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        from mpsnerf_torch.train.trainer import Trainer
+
+        Trainer.view_step = self.orig
+
+
+def _adam_equal(saved, live):
+    """The optimizer state dicts hold the same step counts and moments."""
+    import torch
+
+    if saved["state"].keys() != live["state"].keys():
+        return False
+    return all(torch.equal(torch.as_tensor(a[k]).cpu(),
+                           torch.as_tensor(live["state"][i][k]).cpu())
+               for i, a in saved["state"].items() for k in a)
+
+
+def cli_on_the_card(dev, size=512, eval_size=256, n_verts=6890,
+                    overrides=()):
+    """Phase 9: ``run_nerf_batch_torch.main`` on the flagship config
+    (``--batch_size 1``) over a THuman-layout fixture, then a resume with
+    ``--resume_optimizer``, then one with the items loaded in the loop,
+    then ``run_thuman_eval`` on the weights it saved; then K1 and K2
+    against their plain versions on a train step of this path.  Returns
+    the launches of the three CLI runs (``cli``) and of
+    the eval (``cli_eval``) and the kernels' worst errors.  ``size``,
+    ``eval_size`` and ``overrides`` (more CLI flags) shrink it for a
+    rehearsal on the CPU."""
+    import math
+    import os
+    import pathlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import run_nerf_batch_torch
+    from mpsnerf_torch.data import to_device_input
+    from mpsnerf_torch.eval import runner
+    from mpsnerf_torch.factory import return_dataset, return_model
+    from mpsnerf_torch.smpl.assets import load_smpl_models
+    from mpsnerf_torch.train.trainer import Trainer
+
+    on_card = torch.device(dev).type == "cuda"
+    config = pathlib.Path(__file__).resolve().parent / "configs"
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="mpsnerf_cli_") as tmp:
+        t0 = time.perf_counter()
+        all_root = os.path.join(tmp, "thuman")
+        train_root = os.path.join(all_root, "fixture_train_F")
+        eval_root = os.path.join(all_root, "fixture_eval_F")
+        # 20 pose entries (the config's poses_num) over 2 frames; the eval
+        # subject's start pose 20 and the next, and pose 0
+        write_thuman_subject(train_root, size, 2,
+                             {p: p % 2 for p in range(20)}, n_verts)
+        write_thuman_subject(eval_root, eval_size, 3, {0: 0, 20: 1, 21: 2},
+                             n_verts)
+        os.makedirs(os.path.join(tmp, "data"))
+        # the list's first 25 names are the training humans (all this
+        # fixture), name 25 the held-out one
+        with open(os.path.join(tmp, "data", "THuman_1_human_list.txt"),
+                  "w") as f:
+            f.write("fixture_train_F\n" * 25 + "fixture_eval_F\n")
+        log(f"[9] THuman-layout fixture: 24 cameras with distortion "
+            f"{THUMAN_D}, train subject {size}^2 x 2 frames, held-out "
+            f"subject {eval_size}^2 x 3 frames, {n_verts}-vertex rig, PNG; "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        base = os.path.join(tmp, "logs")
+        argv = ["--config", str(config / "canonical_transformer.txt"),
+                "--data_root", train_root, "--batch_size", "1",
+                "--basedir", base, "--i_print", "24", "--i_weights", "24",
+                "--i_testset", "1000000", "--device", str(dev),
+                *overrides]
+        try:
+            os.chdir(tmp)  # the loaders read data/ from the working dir
+            restores = []
+            orig_restore = Trainer.restore
+
+            def spy_restore(trainer, state, load_optimizer=False):
+                orig_restore(trainer, state, load_optimizer)
+                restores.append(dict(
+                    step=trainer.step, load=load_optimizer,
+                    adam=copy.deepcopy(trainer.optimizer.state_dict())))
+
+            if on_card:
+                torch.cuda.synchronize()
+            reset_counts()
+            runs, timers = [], []
+            Trainer.restore = spy_restore
+            try:
+                # 3 items with the loader's 4 threads; a resume with Adam's
+                # state for 1; 2 items loaded in the loop (no threads)
+                for extra in (["--N_iteration", "71"],
+                              ["--N_iteration", "95",
+                               "--resume_optimizer", "1"],
+                              ["--N_iteration", "143", "--num_worker", "0"]):
+                    t1 = time.perf_counter()
+                    with step_timer(on_card) as timer:
+                        runs.append(run_nerf_batch_torch.main(argv + extra))
+                    timers.append(timer)
+                    wall = time.perf_counter() - t1
+                    run = runs[-1]
+                    line = []
+                    for kind in (False, True):
+                        # each run's first step (lazy set-up) left out
+                        ms = [r["ms"] for r in timer.records[1:]
+                              if r["smooth"] == kind]
+                        line.append(
+                            f"{'smooth' if kind else 'plain'} mean "
+                            f"{sum(ms) / len(ms):.1f} ms (min {min(ms):.1f}, "
+                            f"max {max(ms):.1f}, {len(ms)})")
+                    log(f"[9] CLI {' '.join(extra)}: steps {run.start_step} "
+                        f"-> {run.trainer.global_step} in {wall:.1f} s wall "
+                        f"({run.args.num_worker} workers -> "
+                        f"{min(run.args.num_worker, 4)} loader threads); "
+                        f"view-steps ({'CUDA events' if on_card else 'wall'})"
+                        f": {', '.join(line)}")
+            finally:
+                Trainer.restore = orig_restore
+            cli_launches = read_counts()
+            exp = runs[0].args.expname
+            ckpts = os.path.join(base, exp, "checkpoints")
+            saved = {s: torch.load(os.path.join(ckpts, s),
+                                   map_location="cpu", weights_only=True)
+                     for s in sorted(os.listdir(ckpts))}
+            args = runs[0].args
+            torch.manual_seed(args.seed)
+            init = return_model(args).state_dict()
+
+            # every step: finite terms, nothing dropped; 6 smooth an item
+            records = [r for t in timers for r in t.records]
+            finite = all(math.isfinite(float(x)) for r in records
+                         for x in r["terms"])
+            dropped = max(float(r["terms"].n_dropped) for r in records)
+            n_smooth = sum(r["smooth"] for r in records)
+            item_dropped = max(lg["n_dropped"] for run in runs
+                               for lg in run.logs)
+
+            def changed(a, b):
+                return float(np.mean([not torch.equal(a[k], b[k])
+                                      for k in a]))
+
+            states = [init] + [saved[k]["model"] for k in sorted(saved)]
+            moved = [changed(a, b) for a, b in zip(states, states[1:])]
+            adam_ok = (len(restores) == 2 and restores[0]["step"] == 72
+                       and restores[0]["load"]
+                       and _adam_equal(saved["000072"]["optimizer"],
+                                       restores[0]["adam"])
+                       and restores[1]["step"] == 96
+                       and not restores[1]["load"]
+                       and restores[1]["adam"]["state"] == {})
+            need = [k for k in KERNEL_NAMES if k != "nearest_vertex_packed"]
+            launched = all(cli_launches[k] > 0 for k in need)
+            ok = (finite and dropped == 0 and item_dropped == 0
+                  and len(records) == 144 and n_smooth == 36
+                  and [r.start_step for r in runs] == [0, 72, 96]
+                  and runs[2].trainer.global_step == 144
+                  and sorted(saved) == [f"{24 * i:06d}" for i in range(1, 7)]
+                  and min(moved) > 0.9 and adam_ok and launched
+                  and os.path.exists(os.path.join(base, exp, "args.txt"))
+                  and os.path.exists(os.path.join(
+                      base, "summaries", exp, "scalars.jsonl")))
+            losses = [round(lg["loss"], 5) for run in runs for lg in run.logs]
+            log(f"[9] item losses {losses}, psnr "
+                f"{[round(lg['psnr'], 2) for run in runs for lg in run.logs]}"
+                f"; n_dropped {dropped:g} (items {item_dropped:g}); finite "
+                f"{finite}; {n_smooth} of {len(records)} steps smooth; "
+                f"parameter tensors changed between checkpoints (from the "
+                f"seeded init) {[round(100 * m) for m in moved]} %; "
+                f"checkpoints {sorted(saved)}; resumed at step "
+                f"{[r['step'] for r in restores]}, with Adam equal to the "
+                f"saved and then fresh {adam_ok}; launches "
+                f"{json.dumps(cli_launches)}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(1)
+
+            # the host loader alone: a train item at the config's shapes
+            ds = return_dataset(args)
+            t1 = time.perf_counter()
+            for i in range(2):
+                item = ds[i]
+            loader_ms = (time.perf_counter() - t1) / 2 * 1e3
+            log(f"[9] host loader: {loader_ms:.0f} ms per THuman train "
+                f"item ({size}^2 x 24 views, {args.N_rand} rays a view, "
+                f"undistort and rays in numpy), one thread")
+
+            # the eval protocol on the saved weights, cut to 1 held-out
+            # human (the list's name 25), 1 pose a pass, eval_size^2
+            smpl_models = load_smpl_models(device=dev)
+            savedir = os.path.join(base, exp, "testset_000144")
+            reset_counts()
+            t1 = time.perf_counter()
+            metric = runner.run_thuman_eval(
+                args, runs[-1].trainer.model, lambda g: smpl_models[g],
+                savedir, verbose=False, poses_num=1, image_hw=eval_size,
+                device=dev)
+            if on_card:
+                torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t1
+            eval_launches = read_counts()
+            files = sorted(os.path.relpath(os.path.join(d, f), savedir)
+                           for d, _, fs in os.walk(savedir) for f in fs)
+            n_img = 2 * len(runner.THUMAN_NOVEL_VIEWS)
+            finite = all(np.isfinite(np.asarray(metric[k])).all() for k in (
+                "novel_view_psnr", "novel_view_ssim", "novel_pose_psnr",
+                "novel_pose_ssim"))
+            want = {"metrics.json", "metrics.npy",
+                    "novel_pose/fixture_eval_F/frame0021_view0001.png",
+                    "novel_view/fixture_eval_F/frame0000_view0023_gt.png"}
+            ok = (finite and want <= set(files) and len(files) == 2 * n_img
+                  + 2 and all(eval_launches[k] > 0 for k in (
+                      "nearest_vertex", "vertex_buckets",
+                      "grid_sample_patch_fwd")))
+            log(f"[9] run_thuman_eval (1 human, 1 pose a pass, "
+                f"{eval_size}^2, {n_img} images): {eval_s:.1f} s, "
+                f"{eval_s / n_img * 1e3:.0f} ms per image (items, render, "
+                f"metrics, PNGs); psnr novel view "
+                f"{np.round(metric['novel_view_psnr'], 3).tolist()}, novel "
+                f"pose {np.round(metric['novel_pose_psnr'], 3).tolist()}; "
+                f"{len(files)} files; launches {json.dumps(eval_launches)}: "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(1)
+
+            # K1 and K2 on a plain and a smooth step of this path
+            host = ds[0]
+            captured = capture_train_inputs(
+                runs[-1].trainer, smpl_models[int(host["gender"])],
+                to_device_input(host, dev, rays=True))
+            errs = compare_captured(captured, tag="CLI ")
+        finally:
+            os.chdir(cwd)
+    return {"cli": cli_launches, "cli_eval": eval_launches}, errs
 
 
 def _bwd_work(v, c, h, w, n, need):
@@ -1562,6 +1906,28 @@ def k2_times(dev, errs, captured):
             f"plain {rec['plain_ms']:.3f} ms, library "
             f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms")
     out["grid_sample_patch_bwd"]["captured"] = sets
+    # the RGB's backward at the plain step's points (both outputs), with
+    # autograd of F.grid_sample on the same inputs beside it
+    image, coords = captured["fwd"]["plain step rgb"]
+    v, c, h, w = image.shape
+    n = coords.shape[1]
+    need = (True, True)
+    g = torch.randn((v, c, n), generator=torch.Generator(
+        device=image.device).manual_seed(3), device=image.device)
+    with uncounted():
+        rec = {
+            "need": list(need),
+            "ms": cuda_ms(lambda: gs.grid_sample_patch_bwd_cuda(
+                g, image, coords, *need), 10),
+            "library_ms": cuda_ms(_library_bwd(g, image, coords, need), 10),
+            "shape": [list(image.shape), n],
+        }
+    rec["bound_ms"], rec["bound_by"] = _bound(
+        *_bwd_work(v, c, h, w, n, need))
+    out["grid_sample_patch_bwd"]["rgb"]["plain_step_points"] = rec
+    log(f"[7] grid_sample_patch_bwd on the RGB {tuple(image.shape)} at the "
+        f"plain step's {n} points, need {need}: kernel {rec['ms']:.4f} ms, "
+        f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms")
     for label in ("plain_step", "smooth_step"):
         out["grid_sample_patch_bwd"][f"{label}_inputs_ms"] = sets[label]["ms"]
     args = captured["bwd2"]
@@ -1792,13 +2158,27 @@ def streamed_table(verts, seed):
     return torch.cat([verts] + more)[:STREAMED_VERTS].contiguous()
 
 
+def merge_path(records, launches, errs):
+    """Add a path's launches (``launches_<run>``) and the worst errors of
+    its comparisons (K2's keyed by latent or RGB) to the kernel records."""
+    for rec in records:
+        for run, counts in launches.items():
+            rec[f"launches_{run}"] = counts[rec["name"]]
+        for key, e in errs.items():
+            if key == rec["name"]:
+                rec["max_abs_err"] = max(rec["max_abs_err"], e)
+            elif key[0] == rec["name"]:
+                sub = rec if key[1] == "latent" else rec["rgb"]
+                sub["max_abs_err"] = max(sub["max_abs_err"], e)
+
+
 def main(argv=None):
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--stop-after", type=int, default=9,
+    ap.add_argument("--stop-after", type=int, default=10,
                     help="end after this phase (no result lines)")
     stop_after = ap.parse_args(argv).stop_after
 
@@ -1827,6 +2207,11 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
+    try:
+        import PIL
+        log(f"[1] PIL {PIL.__version__} imports (JPEG images can be read)")
+    except ImportError:
+        log("[1] PIL does not import: JPEG images cannot be read, PNG can")
     clock_mhz = card_clock_mhz()
     t0 = time.perf_counter()
     sources = ("nearest_vertex", "nearest_vertex_packed", "grid_sample_patch")
@@ -2104,17 +2489,13 @@ def main(argv=None):
         return 0
 
     # ---- 8. the eval entry point at full width
-    eval_launches, eval_errs = eval_full_width(dev, ds, smpl)
-    for rec in records:
-        for run, counts in eval_launches.items():
-            rec[f"launches_{run}"] = counts[rec["name"]]
-        for key, e in eval_errs.items():
-            if key == rec["name"]:
-                rec["max_abs_err"] = max(rec["max_abs_err"], e)
-            elif key[0] == rec["name"]:
-                sub = rec if key[1] == "latent" else rec["rgb"]
-                sub["max_abs_err"] = max(sub["max_abs_err"], e)
-    log(f"[8] total {time.perf_counter() - t_start:.0f} s")
+    merge_path(records, *eval_full_width(dev, ds, smpl))
+    if stop_after <= 8:
+        return 0
+
+    # ---- 9. the CLI on a THuman-layout fixture at full width
+    merge_path(records, *cli_on_the_card(dev))
+    log(f"[9] total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,7 @@
-"""Host data for the port: the synthetic scene, voxelization, the body
-grid, and the move of an item's arrays to the device."""
+"""Host data for the port: the synthetic scene, the THuman and H36M
+loaders (``thuman.py``, ``h36m.py``, reading through ``imageio.py``), the
+prefetching loader, voxelization, the body grid, and the move of an
+item's arrays to the device."""
 
 from __future__ import annotations
 

@@ -1,5 +1,9 @@
 """Whole-view rendering and the eval entry points (port of
-``mpsnerf_tpu/eval/runner.py``).
+``mpsnerf_tpu/eval/runner.py``): the synthetic protocol, THuman's
+``test_THuman_ssim`` (held-out humans 25-29 of the list, start poses
+[20, 24, 27, 25, 28], novel views [1, 5, 7, 11, 13, 17, 19, 23]) and
+H36M's ``test_H36M`` (per-subject pose tables, novel view camera 3,
+masked-ray rendering, the unmasked image as the ground truth).
 
 :class:`ViewRenderer` renders a target view conditioned on a source item
 on one of two paths:
@@ -23,6 +27,7 @@ depend on neither).
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -39,6 +44,20 @@ from mpsnerf_torch.renderer.render import (
 )
 
 _RAY_KEYS = ("ray_o_all", "ray_d_all", "near_all", "far_all")
+
+THUMAN_NOVEL_VIEWS = [1, 5, 7, 11, 13, 17, 19, 23]
+THUMAN_START_POSES = [20, 24, 27, 25, 28]
+THUMAN_TEST_RANGE = (25, 30)
+
+# test_H36M's per-subject tables for S1..S11: pose counts, novel-view
+# window sizes, input poses and novel-pose start frames
+H36M_SUBJECTS = ["S1", "S5", "S6", "S7", "S8", "S9", "S11"]
+H36M_ROOTS = [f"./data/h36m/{s}/Posing" for s in H36M_SUBJECTS]
+H36M_POSES_NUM = [49, 127, 83, 200, 87, 133, 82]
+H36M_NOVEL_VIEW_POSES_NUM = [150, 250, 150, 300, 250, 260, 200]
+H36M_INPUT_POSE = [250, 30, 1050, 820, 370, 20, 20]
+H36M_START_POSE = [750, 1250, 750, 1500, 1250, 1300, 1000]
+H36M_NOVEL_VIEW = [3]
 
 
 class DatasetWindow:
@@ -423,3 +442,128 @@ def run_synthetic_eval(args, model: MPSNeRF, smpl_selector: Callable,
         verbose=verbose,
         render_async=(renderer.render_view_async, renderer.finish_view),
     )
+
+
+def run_thuman_eval(args, model: MPSNeRF, smpl_selector: Callable,
+                    savedir: str, dataset_cls=None, verbose: bool = True,
+                    poses_num: int = 5, image_hw: int = 512,
+                    device="cuda") -> Dict:
+    """``test_THuman_ssim`` over the held-out humans: the names
+    ``THUMAN_TEST_RANGE`` of ``data/THuman_1_human_list.txt`` (relative to
+    the working directory), siblings of ``args.data_root``.  Per human, the
+    novel-pose pass from its start pose (the source, then ``poses_num``
+    targets) and the novel-view pass over poses 0.. ``poses_num`` - 1, each
+    over the novel views, pipelined.  ``image_hw`` is the square frame the
+    renders are read as (512 in the reference)."""
+    if dataset_cls is None:
+        from mpsnerf_torch.data.thuman import THumanDatasetBatch as dataset_cls
+
+    with open("data/THuman_1_human_list.txt") as f:
+        names = [x.strip() for x in
+                 f.readlines()[THUMAN_TEST_RANGE[0]:THUMAN_TEST_RANGE[1]]]
+    all_root = os.path.dirname(args.data_root)
+
+    renderer = ViewRenderer(
+        model, smpl_selector, chunk=args.chunk, n_samples=args.N_samples,
+        n_importance=getattr(args, "N_importance", 0),
+        white_bkgd=args.white_bkgd, device=device)
+
+    humans, start_poses = {}, {}
+    for name, start in zip(names, THUMAN_START_POSES):
+        root = os.path.join(all_root, name)
+        common = dict(split=args.test_split, view_num=args.view_num,
+                      model=args.model, male=args.male,
+                      mean_shape=args.mean_shape, multi_person=False)
+        ds_pose = dataset_cls(root, start=start, interval=1,
+                              poses_num=poses_num + 1, **common)
+        ds_view = dataset_cls(root, start=0, interval=1,
+                              poses_num=poses_num, **common)
+        humans[name] = {
+            "novel_pose": DatasetWindow(ds_pose, poses_num + 1),
+            "novel_view": DatasetWindow(ds_view, poses_num),
+        }
+        start_poses[name] = start
+
+    first = next(iter(humans.values()))["novel_view"][0]
+    caps = renderer.prewarm(first, first, k=THUMAN_NOVEL_VIEWS[0])
+    if verbose and caps:
+        print(f"[eval] prewarmed (capacity, fine) pairs: {caps}")
+
+    return evaluate_novel_view_pose(
+        renderer.render_view, humans, THUMAN_NOVEL_VIEWS, image_hw,
+        image_hw, savedir, start_poses=start_poses, verbose=verbose,
+        render_async=(renderer.render_view_async, renderer.finish_view))
+
+
+class _SourceThenWindow:
+    """Novel-pose items: the source item first, then the window."""
+
+    def __init__(self, sp_item, window):
+        self.sp_item = sp_item
+        self.window = window
+
+    def __len__(self):
+        return 1 + len(self.window)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            if i != slice(1, None):
+                raise ValueError("only [1:] slices the window")
+            return self.window
+        return self.sp_item if i == 0 else self.window[i - 1]
+
+
+def run_h36m_eval(args, model: MPSNeRF, smpl_selector: Callable,
+                  savedir: str, dataset_cls=None, verbose: bool = True,
+                  device="cuda") -> Dict:
+    """``test_H36M`` for the subject ``args.test_persons``: novel view
+    camera 3 at 1000 x 1000, only the rays of ``mask_at_box`` rendered,
+    the ground truth the unmasked image ``o_img_all``."""
+    if dataset_cls is None:
+        from mpsnerf_torch.data.h36m import H36MDatasetBatch as dataset_cls
+
+    p = int(args.test_persons)
+    name, root = H36M_SUBJECTS[p], H36M_ROOTS[p]
+    common = dict(split=args.test_split, view_num=args.view_num,
+                  mean_shape=args.mean_shape, new_mask=args.new_mask,
+                  multi_person=False)
+    sp_ds = dataset_cls(root, start=H36M_INPUT_POSE[p], interval=1,
+                        poses_num=1, **common)
+    pose_ds = dataset_cls(root, start=H36M_START_POSE[p], interval=5,
+                          poses_num=H36M_POSES_NUM[p], **common)
+    view_ds = dataset_cls(root, start=0, interval=5,
+                          poses_num=H36M_NOVEL_VIEW_POSES_NUM[p], **common)
+    humans = {name: {
+        "novel_pose": _SourceThenWindow(
+            sp_ds[0], DatasetWindow(pose_ds, H36M_POSES_NUM[p])),
+        "novel_view": DatasetWindow(view_ds, H36M_NOVEL_VIEW_POSES_NUM[p]),
+    }}
+
+    # the masked rays are the box's, whose in-body share is train-like
+    # (~20-40 %), not the full image's ~6 %: the chunked path's fraction
+    # follows
+    renderer = ViewRenderer(
+        model, smpl_selector, chunk=args.chunk, n_samples=args.N_samples,
+        n_importance=getattr(args, "N_importance", 0),
+        white_bkgd=args.white_bkgd, eval_compact_fraction=0.5,
+        device=device)
+
+    def dispatch(sp, tp, k):
+        mask = np.asarray(tp["mask_at_box_all"][k])
+        return renderer.render_view_async(sp, tp, k, ray_mask=mask)
+
+    def render_view(sp, tp, k):
+        return renderer.finish_view(dispatch(sp, tp, k))
+
+    first = humans[name]["novel_view"][0]
+    caps = renderer.prewarm(first, first, k=H36M_NOVEL_VIEW[0])
+    if verbose and caps:
+        print(f"[eval] prewarmed (capacity, fine) pairs: {caps}")
+
+    def gt_fn(item, k):
+        return np.asarray(item["o_img_all"][k]).transpose(1, 2, 0)
+
+    return evaluate_novel_view_pose(
+        render_view, humans, H36M_NOVEL_VIEW, 1000, 1000, savedir,
+        start_poses={name: H36M_START_POSE[p]}, verbose=verbose,
+        gt_fn=gt_fn, render_async=(dispatch, renderer.finish_view))

@@ -1,7 +1,7 @@
 """Ray generation and the train-time ray sampler on the host (port of
 ``mpsnerf_tpu/rays/rays.py``: ``get_rays``, ``get_near_far``,
-``project_points``, ``get_bound_2d_mask``, ``RayBatch`` and
-``sample_rays_batch``; numpy, no OpenCV).
+``project_points``, ``get_bound_2d_mask``, ``RayBatch``,
+``sample_rays_batch`` and ``sample_rays_h36m_batch``; numpy, no OpenCV).
 
 ``get_bound_2d_mask`` rasterises the six faces of the projected box with
 :func:`fill_poly`, a numpy/python transcription of OpenCV's ``fillPoly``
@@ -314,62 +314,32 @@ class RayBatch(NamedTuple):
     bkgd_msk: np.ndarray     # (N, 1) 1=body pixel, 0=background
 
 
-def sample_rays_batch(
-    img: np.ndarray,
-    msk: np.ndarray,
-    K: np.ndarray,
-    R: np.ndarray,
-    T: np.ndarray,
-    bounds: np.ndarray,
-    n_rays: int,
-    split: str,
-    body_ratio: float = 0.8,
-    rng: Optional[np.random.Generator] = None,
-) -> RayBatch:
-    """Train: body/background importance sampling inside the projected box,
-    resampled until exactly ``n_rays`` rays hit the box; the draws come
-    from ``rng`` in the JAX package's order, so one seed gives the same
-    rays.  Test: every pixel, near/far scattered into full-image arrays."""
-    if rng is None:
-        rng = np.random.default_rng()
-    H, W = img.shape[:2]
-    ray_o, ray_d = get_rays(H, W, K, R, T)
-    pose = np.concatenate([R, T.reshape(3, 1)], axis=1)
-    bound_mask = get_bound_2d_mask(bounds, K, pose, H, W)
+def _full_image_batch(img, ray_o, ray_d, bounds) -> RayBatch:
+    """The test split: every pixel, near/far scattered into full-image
+    arrays."""
+    o, d, near, far, hit = full_image_rays(ray_o, ray_d, bounds)
+    return RayBatch(
+        rgb=img.reshape(-1, 3).astype(np.float32), ray_o=o, ray_d=d,
+        near=near.astype(np.float32), far=far.astype(np.float32),
+        coord=np.zeros((len(o), 2), np.int64), mask_at_box=hit,
+        bkgd_msk=np.ones((len(o), 1), np.float32),
+    )
 
-    msk = msk * bound_mask
-    bound_mask = bound_mask.copy()
-    bound_mask[msk == 100] = 0
-    img = img.copy()
-    img[bound_mask != 1] = 0
 
-    if split != "train":
-        o, d, near, far, hit = full_image_rays(ray_o, ray_d, bounds)
-        return RayBatch(
-            rgb=img.reshape(-1, 3).astype(np.float32), ray_o=o, ray_d=d,
-            near=near.astype(np.float32), far=far.astype(np.float32),
-            coord=np.zeros((len(o), 2), np.int64), mask_at_box=hit,
-            bkgd_msk=np.ones((len(o), 1), np.float32),
-        )
-
+def _resample_until(img, ray_o, ray_d, bounds, n_rays, pools, counts,
+                    rng) -> RayBatch:
+    """Draw ``counts(remaining)`` pixels from each of ``pools`` (the first
+    is the body's: ``bkgd_msk`` 1, the others 0), keep the rays that hit
+    the box and repeat until ``n_rays`` did; the draws come from ``rng``
+    pool by pool, round by round, as in the JAX package."""
     lists = {k: [] for k in RayBatch._fields}
     n_sampled = 0
-    coord_body = np.argwhere(msk == 1)
-    coord_bg = np.argwhere((bound_mask == 1) & (msk != 1))
-    # degenerate masks: fall back to any in-box pixel
-    if len(coord_body) == 0:
-        coord_body = np.argwhere(bound_mask == 1)
-    if len(coord_bg) == 0:
-        coord_bg = coord_body
-
     while n_sampled < n_rays:
-        n_body = int((n_rays - n_sampled) * body_ratio)
-        n_rand = (n_rays - n_sampled) - n_body
-        cb = coord_body[rng.integers(0, len(coord_body), n_body)]
-        cg = coord_bg[rng.integers(0, len(coord_bg), n_rand)]
-        coord = np.concatenate([cb, cg], axis=0)
+        ns = counts(n_rays - n_sampled)
+        coord = np.concatenate([pool[rng.integers(0, len(pool), n)]
+                                for pool, n in zip(pools, ns)], axis=0)
         bkgd = np.concatenate(
-            [np.ones((n_body, 1)), np.zeros((n_rand, 1))], axis=0)
+            [np.ones((ns[0], 1)), np.zeros((sum(ns[1:]), 1))], axis=0)
 
         o = ray_o[coord[:, 0], coord[:, 1]]
         d = ray_d[coord[:, 0], coord[:, 1]]
@@ -397,3 +367,101 @@ def sample_rays_batch(
         mask_at_box=out["mask_at_box"],
         bkgd_msk=out["bkgd_msk"].astype(np.float32),
     )
+
+
+def _box_masks(img, msk, K, R, T, bounds, border_levels):
+    """The view's rays, the projected box with the mask's border levels
+    taken out of it, the mask cut to the box and the image zeroed outside
+    it."""
+    H, W = img.shape[:2]
+    ray_o, ray_d = get_rays(H, W, K, R, T)
+    pose = np.concatenate([R, T.reshape(3, 1)], axis=1)
+    bound_mask = get_bound_2d_mask(bounds, K, pose, H, W)
+    msk = msk * bound_mask
+    bound_mask = bound_mask.copy()
+    for level in border_levels:
+        bound_mask[msk == level] = 0
+    img = img.copy()
+    img[bound_mask != 1] = 0
+    return ray_o, ray_d, bound_mask, msk, img
+
+
+def sample_rays_batch(
+    img: np.ndarray,
+    msk: np.ndarray,
+    K: np.ndarray,
+    R: np.ndarray,
+    T: np.ndarray,
+    bounds: np.ndarray,
+    n_rays: int,
+    split: str,
+    body_ratio: float = 0.8,
+    rng: Optional[np.random.Generator] = None,
+) -> RayBatch:
+    """Train: body/background importance sampling inside the projected box,
+    resampled until exactly ``n_rays`` rays hit the box; the draws come
+    from ``rng`` in the JAX package's order, so one seed gives the same
+    rays.  Test: every pixel, near/far scattered into full-image arrays."""
+    if rng is None:
+        rng = np.random.default_rng()
+    ray_o, ray_d, bound_mask, msk, img = _box_masks(img, msk, K, R, T,
+                                                    bounds, (100,))
+    if split != "train":
+        return _full_image_batch(img, ray_o, ray_d, bounds)
+
+    coord_body = np.argwhere(msk == 1)
+    coord_bg = np.argwhere((bound_mask == 1) & (msk != 1))
+    # degenerate masks: fall back to any in-box pixel
+    if len(coord_body) == 0:
+        coord_body = np.argwhere(bound_mask == 1)
+    if len(coord_bg) == 0:
+        coord_bg = coord_body
+
+    def counts(n):
+        n_body = int(n * body_ratio)
+        return n_body, n - n_body
+
+    return _resample_until(img, ray_o, ray_d, bounds, n_rays,
+                           (coord_body, coord_bg), counts, rng)
+
+
+def sample_rays_h36m_batch(
+    img: np.ndarray,
+    msk: np.ndarray,
+    K: np.ndarray,
+    R: np.ndarray,
+    T: np.ndarray,
+    bounds: np.ndarray,
+    n_rays: int,
+    split: str,
+    body_ratio: float = 0.6,
+    rng: Optional[np.random.Generator] = None,
+) -> RayBatch:
+    """The H36M sampler: the mask's erode/dilate levels 100 (inner border)
+    and 200 (outer border) are both taken out of the box, and the rays
+    that are not the body's split 50/50 between in-box background and the
+    outer border (``msk == 200``)."""
+    if rng is None:
+        rng = np.random.default_rng()
+    ray_o, ray_d, bound_mask, msk, img = _box_masks(img, msk, K, R, T,
+                                                    bounds, (100, 200))
+    if split != "train":
+        return _full_image_batch(img, ray_o, ray_d, bounds)
+
+    coord_body = np.argwhere(msk == 1)
+    coord_bg = np.argwhere((bound_mask == 1) & (msk != 1))
+    coord_outer = np.argwhere((bound_mask == 0) & (msk == 200))
+    if len(coord_body) == 0:
+        coord_body = np.argwhere(bound_mask == 1)
+    if len(coord_bg) == 0:
+        coord_bg = coord_body
+    if len(coord_outer) == 0:
+        coord_outer = coord_bg
+
+    def counts(n):
+        n_body = int(n * body_ratio)
+        n_rand = int((n - n_body) * 0.5)
+        return n_body, n_rand, n - n_body - n_rand
+
+    return _resample_until(img, ray_o, ray_d, bounds, n_rays,
+                           (coord_body, coord_bg, coord_outer), counts, rng)

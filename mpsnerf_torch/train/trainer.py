@@ -1,8 +1,10 @@
 """Training: the per-view optimization step and the host loop (port of
 ``mpsnerf_tpu/train/trainer.py`` for the flagship configuration: the acc
-loss on, no correction, consistency, density or pair losses; the
-hierarchical pass, occupancy compositing and a white background as
-options).
+loss as an option, on by default; the hierarchical pass, occupancy
+compositing and a white background as options).  The correction,
+consistency and density losses and pair training need model parts that
+are not ported (``ROADMAP.md`` item 6): :class:`TrainConfig` raises
+``NotImplementedError`` for them.
 
 One optimizer step per output view of a loader item; the step counter
 counts view-steps and sets the learning rate ``lrate * 0.5^(step /
@@ -47,8 +49,28 @@ class TrainConfig:
     perturb: float = 1.0
     occupancy: bool = False
     white_bkgd: bool = False
+    acc_loss: bool = True
+    correction_loss: bool = False
+    consistency_loss: bool = False
+    density_loss: bool = False
     smooth_loss: bool = True
     smooth_interval: int = 4
+    pair_mode: bool = False  # H36M_P/THuman_P: the pose-gated image loss
+
+    def __post_init__(self):
+        wanted = (
+            ("correction_loss", self.correction_loss, "the correction field"),
+            ("consistency_loss", self.consistency_loss,
+             "the correction field's source-pose points"),
+            ("density_loss", self.density_loss,
+             "the correction field's losses"),
+            ("pair_mode", self.pair_mode,
+             "pair training (the pair model and its datasets)"),
+        )
+        missing = [f"{name} needs {part}" for name, on, part in wanted if on]
+        if missing:
+            raise NotImplementedError(
+                "; ".join(missing) + ": not ported (ROADMAP.md item 6)")
 
 
 def lr_at_step(cfg: TrainConfig, step: int) -> float:
@@ -106,8 +128,12 @@ def make_loss_fn(model: MPSNeRF, cfg: TrainConfig, smooth: bool):
                              raw.sigma.reshape(r, n_s), z_vals, rays_d,
                              occupancy=cfg.occupancy,
                              white_bkgd=cfg.white_bkgd)
-        terms = compute_losses(out.rgb_map, out.acc_map, target_rgb, bkgd_msk,
-                               raw, raw_perturbed)
+        terms = compute_losses(
+            out.rgb_map, out.acc_map, target_rgb, bkgd_msk, raw,
+            raw_perturbed, use_acc_loss=cfg.acc_loss,
+            use_correction_loss=cfg.correction_loss,
+            use_consistency_loss=cfg.consistency_loss,
+            use_density_loss=cfg.density_loss)
         return terms.total, (terms, out.rgb_map)
 
     return loss_fn

@@ -441,11 +441,14 @@ def test_hierarchical_view_step_matches_jax(scene, smooth, perturb, grad_tol):
 
 
 def test_train_config_matches_jax_defaults():
-    """The port's TrainConfig fields take the JAX package's defaults."""
+    """The port's TrainConfig has the JAX package's fields and defaults,
+    the loss switches and ``pair_mode`` included."""
     j = dataclasses.asdict(j_trainer.TrainConfig())
     t = dataclasses.asdict(t_trainer.TrainConfig())
-    assert t.items() <= j.items()
-    assert {"n_importance", "occupancy", "white_bkgd"} <= t.keys()
+    assert t == j
+    assert {"n_importance", "occupancy", "white_bkgd", "acc_loss",
+            "correction_loss", "consistency_loss", "density_loss",
+            "pair_mode"} <= t.keys()
 
 
 def test_smooth_step_double_backward_computes_only_what_it_reads(
