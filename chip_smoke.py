@@ -101,14 +101,47 @@ non-zero):
      held-out human, 1 pose a pass, 256^2 (16 images: finite metrics, 34
      files); then phase 2's comparisons on a plain and a smooth step of
      this path;
+  10. every option and variant of the model at full width, through
+     ``factory.return_model`` on the flagship config with ``--model`` and
+     the flags: (a) one smooth and one plain ``Trainer.view_step`` on phase
+     5's 512^2 scene for each of ``coarse_batch``, ``direct_deform``,
+     ``correction_batch``, ``correction_batch_blend``, and
+     ``skinning_batch`` with ``correction_field``, ``skinning_field``,
+     ``with_viewdirs``, ``human_sample 0``, ``mean_shape``, ``use_trans 0``,
+     ``append_rgb 0``, ``compute_dtype bfloat16`` and the aggregate field in
+     pair mode (a second pose as the source): step times by CUDA events,
+     launches, finite losses, nothing dropped, the fields' parameters moved
+     (the pair steps' image term 0 across poses), the 3D encoder's first
+     call against a CPU copy on the same inputs (running statistics 1e-5);
+     the host's ``build_plan`` time; (b) one served view each with
+     ``correction_batch`` (512^2, global path), bf16 (512^2, pixels within
+     1/255 of fp32's on the same weights) and ``human_sample 0`` (128^2,
+     the chunked path over every ray): ms to the image on the device and
+     the idle share; (c) ``run_nerf_batch_torch.main`` on the shipped
+     ``configs/h36m.txt`` (``--batch_size 1``, items loaded in the loop
+     from a generator seeded so that the first item pairs two poses) for 2
+     pair items over a 1000^2 H36M-layout
+     fixture written to a temporary directory and linked at the config's
+     subject paths (a cross-pose item's image term 0, ``img_raw`` > 0),
+     then ``run_h36m_eval`` at 256^2 (1 pose a pass); (d) phase 2's
+     comparisons on what (a) gave the kernels: K1 on the aggregate field's
+     and the pair variant's plain-step calls (pair mode's coarse-point 1-NN
+     among them), K2 forward, K2 backward with the coordinate gradient on
+     the latent and the RGB, the double backward of a smooth step with a
+     deform field; K2's backward timed at the plain step's latent and RGB
+     inputs beside autograd of ``F.grid_sample``;
   then one ``{"kernels": [...]}`` line: each kernel's record from phase 7
      with its launches on each path (``launches``: phase 5;
      ``launches_serving``: phase 4; ``launches_eval``,
      ``launches_hier_plain``, ``launches_hier_smooth``: phase 8;
-     ``launches_cli``, ``launches_cli_eval``: phase 9);
-  10. the device line, last.
+     ``launches_cli``, ``launches_cli_eval``: phase 9;
+     ``launches_variants``, ``launches_variant_views``,
+     ``launches_h36m_cli``, ``launches_h36m_eval``: phase 10), and K2's
+     backward record ``variant_plain_step`` (phase 10 (d)'s times);
+  11. the device line, last.
 
-Launch counts are set to 0 just before each path (phases 4, 5, 6, 8, 9)
+Launch counts are set to 0 just before each path (phases 4, 5, 6, 8, 9,
+10)
 and read just after; launches made to compare or time a kernel do not
 count.
 ``--stop-after N`` ends the run after phase N (a short check of a new
@@ -698,19 +731,9 @@ def seeded_model(device):
     return model.to(device).eval()
 
 
-def device_rows(prof):
-    """Device-side kernel rows of a profile (operator rows repeat their
-    kernels' time), largest first."""
-    import torch
-
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    return rows
-
-
 def log_profile(tag, what, rows, wall_ms, unprofiled_ms, watch):
+    from mpsnerf_torch.tools.profile_step import gemm_ms
+
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     log(f"[{tag}] profiled {what}: kernels busy {busy_ms:.1f} ms of "
         f"{unprofiled_ms:.1f} ms unprofiled time "
@@ -726,7 +749,8 @@ def log_profile(tag, what, rows, wall_ms, unprofiled_ms, watch):
     k2_ms = sum(e.self_device_time_total for e in rows
                 if "grid_sample" in e.key) / 1e3
     log(f"[{tag}] K2 kernels in {what}: {k2_ms:.3f} ms, "
-        f"{100 * k2_ms / busy_ms:.1f} % of the busy time")
+        f"{100 * k2_ms / busy_ms:.1f} % of the busy time; GEMM kernels "
+        f"{gemm_ms(rows):.1f} ms, {100 * gemm_ms(rows) / busy_ms:.1f} %")
 
 
 def breakdown(renderer, smpl, item, k, unprofiled_ms):
@@ -743,6 +767,7 @@ def breakdown(renderer, smpl, item, k, unprofiled_ms):
     )
 
     from mpsnerf_torch.eval.runner import view_rays
+    from mpsnerf_torch.tools.profile_step import device_rows
 
     dev = renderer.device
     rays = view_rays(item, k, dev, item["mask_at_box_all"][k])[0]
@@ -905,6 +930,7 @@ def train_full_width(dev):
     from mpsnerf_torch.data import to_device_input
     from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
     from mpsnerf_torch.train.trainer import TrainConfig, Trainer
+    from mpsnerf_torch.tools.profile_step import device_rows
 
     t0 = time.perf_counter()
     ds = SyntheticHumanDataset(n_poses=1, n_cameras=4, image_size=512,
@@ -1269,9 +1295,10 @@ def eval_full_width(dev, ds, smpl):
     return out, errs
 
 
-def capture_train_inputs(trainer, smpl, item):
+def capture_train_inputs(trainer, smpl, item, tp=None):
     """The inputs of K1 and of the latent's K2 forward, backward and double
-    backward as one plain and one smooth step give them (real points
+    backward as one plain and one smooth step on ``item`` (a pair step's
+    source, with ``tp`` its target) give them (real points
     project onto clustered pixels, unlike the uniform coords of phase 2):
     K1's two calls of the plain step's last query (the 5 cm mask against
     the posed vertices, the canonical lookup against ``t_vertices``; with
@@ -1336,7 +1363,8 @@ def capture_train_inputs(trainer, smpl, item):
                 trainer.step += (-trainer.step) % 4 if smooth else \
                     (1 if trainer.step % 4 == 0 else 0)
                 step["smooth"] = smooth
-                trainer.view_step(smpl, item, item, trainer.step % 4)
+                trainer.view_step(smpl, item, item if tp is None else tp,
+                                  trainer.step % 4)
     finally:
         for name, fn in wrapped.items():
             setattr(gs, name, fn)
@@ -1661,6 +1689,682 @@ def cli_on_the_card(dev, size=512, eval_size=256, n_verts=6890,
         finally:
             os.chdir(cwd)
     return {"cli": cli_launches, "cli_eval": eval_launches}, errs
+
+
+# ---- phase 10: every option and variant; the shipped H36M config ---------
+
+# (label, --model, flag overrides): the variants and flags of phase 10
+VARIANTS = (
+    ("coarse_batch", "coarse_batch", {}),
+    ("direct_deform", "direct_deform", {}),
+    ("correction_batch", "correction_batch", {}),
+    ("correction_batch_blend", "correction_batch_blend", {}),
+    ("correction_field", "skinning_batch", {"correction_field": 1}),
+    ("skinning_field", "skinning_batch", {"skinning_field": 1}),
+    ("with_viewdirs", "skinning_batch", {"with_viewdirs": 1}),
+    ("human_sample 0", "skinning_batch", {"human_sample": 0}),
+    ("mean_shape", "skinning_batch", {"mean_shape": 1}),
+    ("use_trans 0", "skinning_batch", {"use_trans": 0}),
+    ("append_rgb 0", "skinning_batch", {"append_rgb": 0}),
+    ("bfloat16", "skinning_batch", {"compute_dtype": "bfloat16"}),
+    ("pair correction_field", "skinning_batch",
+     {"correction_field": 1, "data_set_type": "H36M_P"}),
+)
+FIELDS = ("forward_deform", "backward_correction", "backward_deform",
+          "encoder_3d", "latent_codes")
+
+
+class kernel_spy:
+    """Keeps the inputs of every K1 and K2 launch in the block (copies with
+    their strides) as ``(stage, wrapper, args)``; ``stage`` is set by the
+    caller.  The launches go on to the kernels."""
+
+    NAMES = ("grid_sample_patch_fwd_cuda", "grid_sample_patch_bwd_cuda",
+             "grid_sample_patch_bwd2_cuda")
+
+    def __init__(self):
+        self.calls, self.stage = [], None
+
+    def __enter__(self):
+        import torch
+
+        from mpsnerf_torch.ops import grid_sample as gs
+        from mpsnerf_torch.ops import knn
+
+        self.saved = [(gs, n, getattr(gs, n)) for n in self.NAMES] + [
+            (knn, "nearest_vertex_cuda", knn.nearest_vertex_cuda)]
+
+        def keep(t):
+            if not isinstance(t, torch.Tensor):
+                return t
+            return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                       device=t.device).copy_(t)
+
+        for mod, name, fn in self.saved:
+            def spy(*a, _fn=fn, _name=name, **k):
+                if self.stage is not None:
+                    self.calls.append((self.stage, _name,
+                                       tuple(keep(x) for x in a)))
+                return _fn(*a, **k)
+            setattr(mod, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def encoder_3d_against_cpu(model, step):
+    """Runs ``step`` with hooks on the 3D encoder's first call: its inputs,
+    its state before and its running statistics after; then the same call
+    on a CPU copy of the encoder in train mode.  Returns the worst
+    difference of the running statistics and of the features."""
+    import torch
+
+    from mpsnerf_torch.models.sparse_conv import SparseConvPlan
+
+    enc, seen = model.encoder_3d, {}
+
+    def pre(module, args):
+        if "args" not in seen:
+            seen["args"] = [a.detach().clone() if isinstance(
+                a, torch.Tensor) else a for a in args]
+            seen["before"] = copy.deepcopy(module.state_dict())
+
+    def post(module, args, out):
+        if "after" not in seen:
+            seen["after"] = {k: v.detach().clone()
+                             for k, v in module.state_dict().items()}
+            seen["out"] = out.detach().clone()
+
+    hooks = (enc.register_forward_pre_hook(pre),
+             enc.register_forward_hook(post))
+    try:
+        step()
+    finally:
+        for h in hooks:
+            h.remove()
+    cpu = copy.deepcopy(enc).cpu().train()
+    cpu.load_state_dict({k: v.cpu() for k, v in seen["before"].items()})
+    feats, plan, coords = seen["args"]
+    plan = SparseConvPlan(*(x.cpu() if isinstance(x, torch.Tensor) else x
+                            for x in plan))
+    with torch.no_grad():
+        out = cpu(feats.cpu(), plan, coords.cpu())
+    stats = max(float((cpu.state_dict()[k] - v.cpu()).abs().max())
+                for k, v in seen["after"].items() if "running" in k)
+    feat = float((out - seen["out"].cpu()).abs().max()) / max(
+        float(out.abs().max()), 1e-30)
+    return stats, feat
+
+
+def train_variants(dev, size=512, n_verts=6890, n_rays=1000,
+                   n_samples=128):
+    """Phase 10 (a): one plain and one smooth ``Trainer.view_step`` of each
+    variant at full width on phase 5's 512^2 scene (a second pose as the
+    source of the pair variant); K1/K2 inputs captured on the aggregate
+    correction field's and the pair variant's steps.  The sizes shrink it
+    for a rehearsal on the CPU."""
+    import math
+
+    import torch
+
+    from mpsnerf_torch.data import attach_spconv_plan, to_device_input
+    from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
+    from mpsnerf_torch.train.trainer import TrainConfig, Trainer
+    from mpsnerf_torch.tools.profile_step import variant_model
+
+    t0 = time.perf_counter()
+    ds = SyntheticHumanDataset(n_poses=2, n_cameras=4, image_size=size,
+                               n_verts=n_verts, split="train", n_rays=n_rays)
+    smpl = ds.smpl_for(0, device=dev)
+    host = [attach_spconv_plan(ds.get_item(p, instance_idx=0))
+            for p in range(2)]
+    t1 = time.perf_counter()
+    attach_spconv_plan(host[0])
+    plan_ms = (time.perf_counter() - t1) * 1e3
+    items = [to_device_input(h, dev, rays=True) for h in host]
+    log(f"[10] variant scene: phase 5's, 2 poses, sparse-conv plans; built "
+        f"in {time.perf_counter() - t0:.1f} s; build_plan {plan_ms:.1f} ms "
+        f"per item on the host ({n_verts} vertices, "
+        f"{int(host[0]['spconv_plan'].n_coarse)} coarse sites)")
+    # an untimed step in fp32 and in bf16 first (the products' first
+    # calls pick and load their kernels)
+    for over in ({}, {"compute_dtype": "bfloat16"}):
+        warm = Trainer(variant_model("skinning_batch", over, dev)[0],
+                       TrainConfig(n_samples=n_samples), device=dev,
+                       start_step=1)
+        warm.view_step(smpl, items[1], items[1], 0)
+    del warm
+    torch.cuda.synchronize()
+    reset_counts()
+    spy, results, bn = kernel_spy(), {}, None
+    with spy:
+        for label, name, over in VARIANTS:
+            model, args = variant_model(name, over, dev)
+            pair = args.data_set_type in ("H36M_P", "THuman_P")
+            # steps 3 (plain) and 4 (smooth): the zero-init output layers
+            # of the correction fields move in the first, so the second
+            # carries a gradient into the rest of the field and the 3D
+            # encoder
+            trainer = Trainer(model, TrainConfig(n_samples=n_samples,
+                                                 pair_mode=pair),
+                              device=dev, start_step=3, seed=0)
+            sp, tp = (items[0], items[1]) if pair else (items[1], items[1])
+            fields = {n: p.detach().clone()
+                      for n, p in model.named_parameters()
+                      if n.split(".")[0] in FIELDS}
+            recs = []
+            for _ in range(2):
+                smooth = trainer.smooth_now()
+                capture = label in ("correction_field",
+                                    "pair correction_field")
+                spy.stage = (f"{label} {'smooth' if smooth else 'plain'}"
+                             if capture else None)
+                counts0 = read_counts()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+
+                def step():
+                    start.record()
+                    out = trainer.view_step(smpl, sp, tp, trainer.step % 4)
+                    end.record()
+                    return out
+
+                if label == "correction_field" and not smooth:
+                    box = []
+                    bn = encoder_3d_against_cpu(
+                        model, lambda: box.append(step()))
+                    terms, _ = box[0]
+                else:
+                    terms, _ = step()
+                torch.cuda.synchronize()
+                counts1 = read_counts()
+                recs.append({"smooth": smooth, "ms": start.elapsed_time(end),
+                             "terms": terms,
+                             "launches": {k: counts1[k] - counts0[k]
+                                          for k in KERNEL_NAMES}})
+            spy.stage = None
+            moved = {n: bool((p.detach() != fields[n]).any())
+                     for n, p in model.named_parameters() if n in fields}
+            owners = sorted({n.split(".")[0] for n in fields})
+            moved_by = {o: any(v for n, v in moved.items()
+                               if n.split(".")[0] == o) for o in owners}
+            finite = all(math.isfinite(float(x)) for r in recs
+                         for x in r["terms"])
+            dropped = max(float(r["terms"].n_dropped) for r in recs)
+            want_fields = (("forward_deform" in moved_by)
+                           == bool(over.get("correction_field")
+                                   or name == "correction_batch")
+                           and ("backward_deform" in moved_by)
+                           == bool(over.get("skinning_field")))
+            # every field and the 3D encoder moved (the codes too)
+            gate = True
+            if pair:
+                gate = all(float(r["terms"].img) == 0.0
+                           < float(r["terms"].img_raw) for r in recs)
+            ok = (finite and dropped == 0 and all(moved_by.values())
+                  and want_fields and gate)
+            results[label] = recs
+            log(f"[10] {label}: plain {recs[0]['ms']:.1f} ms, smooth "
+                f"{recs[1]['ms']:.1f} ms (CUDA events); loss "
+                f"{float(recs[0]['terms'].total):.5f} / "
+                f"{float(recs[1]['terms'].total):.5f}, img "
+                f"{float(recs[0]['terms'].img):.5f} (raw "
+                f"{float(recs[0]['terms'].img_raw):.5f}); moved "
+                f"{moved_by}; launches plain "
+                f"{json.dumps(recs[0]['launches'])}, smooth "
+                f"{json.dumps(recs[1]['launches'])}: "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(1)
+            del trainer, model
+            torch.cuda.empty_cache()
+    launches = read_counts()
+    stats_err, feat_err = bn
+    ok = stats_err <= 1e-5 and feat_err <= 1e-4
+    log(f"[10] the 3D encoder's first call of the correction field's plain "
+        f"step, CUDA against a CPU copy on the same inputs (train mode): "
+        f"running statistics max|diff| {stats_err:.3g}, features "
+        f"{feat_err:.3g} of their max: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(1)
+    return launches, results, spy.calls
+
+
+def variant_views(dev, item, smpl, size=512, small=128, n_samples=128):
+    """Phase 10 (b): one served 512^2 view with ``correction_batch`` and
+    with bf16 (its pixels within 1/255 of fp32's, the same weights), one
+    128^2 view with ``human_sample`` 0 (the chunked path over every ray):
+    ms to the image on the device (CUDA events around
+    ``render_view_async``) and the idle share (profiled kernels' summed
+    time against the unprofiled view)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
+    from mpsnerf_torch.eval.runner import ViewRenderer
+    from mpsnerf_torch.tools.profile_step import (
+        device_rows, gemm_ms, variant_model,
+    )
+
+    def fresh(it):
+        return {k: v for k, v in it.items() if not k.startswith("_")}
+
+    sds = SyntheticHumanDataset(n_poses=1, n_cameras=6,
+                                input_views=[0, 2, 4], image_size=small,
+                                n_verts=item["vertices"].shape[0])
+    s_item = sds.get_item(0, instance_idx=0)
+    s_smpl = sds.smpl_for(0, device=dev)
+    # the fp32 reference of the bf16 view: its pixels only (phase 4 times
+    # the fp32 view)
+    model, _ = variant_model("skinning_batch", {}, dev)
+    view = fresh(item)
+    with uncounted():
+        fp32 = ViewRenderer(model, lambda g: smpl, n_samples=n_samples,
+                            tile=16384, device=dev).render_view(view, view, 1)
+    del model
+    reset_counts()
+    out, images = {}, {}
+    for label, name, over, it, rig, hw in (
+            ("correction_batch", "correction_batch", {}, item, smpl, size),
+            ("bfloat16", "skinning_batch", {"compute_dtype": "bfloat16"},
+             item, smpl, size),
+            ("human_sample 0", "skinning_batch", {"human_sample": 0},
+             s_item, s_smpl, small)):
+        model, _ = variant_model(name, over, dev)
+        r = ViewRenderer(model, lambda g, rig=rig: rig, n_samples=n_samples,
+                         tile=16384, device=dev)
+        view = fresh(it)
+        # the profiled render is the warm-up (the latent, the plans): the
+        # kernels' device time does not depend on the host's lazy set-up
+        with uncounted(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            r.render_view(view, view, 1)
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        busy = sum(e.self_device_time_total for e in rows) / 1e3
+        gemm = gemm_ms(rows)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pending = r.render_view_async(view, view, 1)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        rgb = r.finish_view(pending)
+        stats = r.last_view
+        images[label] = rgb
+        ok = (np.isfinite(rgb).all() and rgb.shape == (hw * hw, 3)
+              and stats.n_dropped == 0 and float((stats.acc > 0.5).mean())
+              > 0.01 and r.global_compact == (label != "human_sample 0"))
+        out[label] = {"ms": ms, "busy_ms": busy, "idle": 1 - busy / ms,
+                      "gemm_ms": gemm, "global_path": r.global_compact,
+                      "hit_rays": stats.hit_rays}
+        path = "global" if r.global_compact else "chunked"
+        log(f"[10] {label} view 1 at {hw}^2: {ms:.1f} ms to the image "
+            f"(CUDA events), kernels busy {busy:.1f} ms (idle "
+            f"{100 * (1 - busy / ms):.1f} %; GEMM kernels {gemm:.1f} ms, "
+            f"{100 * gemm / max(busy, 1e-9):.1f} % of busy), {path} path, "
+            f"{stats.hit_rays} rays run, overflow chunks "
+            f"{stats.n_overflow_chunks}, acc>0.5 on "
+            f"{100 * float((stats.acc > 0.5).mean()):.1f} %: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(1)
+        del r, model
+        torch.cuda.empty_cache()
+    px = float(np.abs(images["bfloat16"] - fp32).max())
+    ok = px < 1.0 / 255.0
+    log(f"[10] bf16 against fp32 on the same weights, view 1 at {size}^2: "
+        f"max|pixel diff| {px:.3g} (bound 1/255 = {1 / 255:.4f}): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(1)
+    return read_counts(), out
+
+
+def write_h36m_subject(root, size, n_frames, n_entries, n_verts):
+    """An H36M-layout subject from the synthetic scene: 4 ring cameras with
+    distortion, the gender-2 (neutral) rig of ``load_smpl_models``, per
+    frame the 4 images and masks as PNG (``Camera_B{v}/{f:06d}.png``,
+    ``mask_cihp/``), ``new_vertices/``, ``new_params/`` (Rh axis-angle),
+    ``45_big_pose_tvertices.npy``; ``annots.npy`` with translations in
+    millimetres and ``n_entries`` pose entries, entry e showing frame
+    ``(e // 10) % n_frames``."""
+    import os
+
+    import numpy as np
+
+    from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
+    from mpsnerf_torch.eval.protocol import encode_png, to8b
+
+    ds = SyntheticHumanDataset(n_poses=n_frames, n_cameras=4,
+                               input_views=list(range(4)), image_size=size,
+                               n_verts=n_verts, seed=2, split="train",
+                               n_rays=8)
+    for sub in ("new_vertices", "new_params"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for f in range(n_frames):
+        item = ds.get_item(f, instance_idx=0)
+        for v in range(4):
+            rel = os.path.join(f"Camera_B{v + 1}", f"{f:06d}.png")
+            for sub, img in (("", np.transpose(item["img_all"][v], (1, 2, 0))),
+                             ("mask_cihp", item["msk_all"][v] > 0)):
+                path = os.path.join(root, sub, rel)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                with open(path, "wb") as fh:
+                    fh.write(encode_png(to8b(img.astype(np.float32))))
+        np.save(os.path.join(root, "new_vertices", f"{f}.npy"),
+                item["vertices"])
+        p = item["params"]
+        np.save(os.path.join(root, "new_params", f"{f}.npy"), {
+            "Rh": np.zeros(3, np.float32),  # R = I in the synthetic scene
+            "Th": np.asarray(p["Th"]), "poses": np.asarray(p["poses"]),
+            "shapes": np.asarray(p["shapes"])})
+        if f == 0:
+            np.save(os.path.join(root, "45_big_pose_tvertices.npy"),
+                    item["t_vertices"])
+    cams = {"K": [c[0] for c in ds.cameras],
+            "D": [np.array(THUMAN_D) for _ in ds.cameras],
+            "R": [c[1] for c in ds.cameras],
+            "T": [np.asarray(c[2]) * 1000.0 for c in ds.cameras]}
+    ims = [{"ims": [f"Camera_B{v + 1}/{(e // 10) % n_frames:06d}.png"
+                    for v in range(4)]} for e in range(n_entries)]
+    np.save(os.path.join(root, "annots.npy"), {"cams": cams, "ims": ims})
+
+
+def crossing_seed(ds, loader_seed):
+    """The first generator seed whose first pair item pairs two poses: the
+    draws of ``data.thuman.pose_pair`` (the subject, the coin, the partner
+    pose) for the first index of a ``PrefetchLoader`` seeded with
+    ``loader_seed``.  The run checks that it did."""
+    import numpy as np
+
+    from mpsnerf_torch.data.prefetch import PrefetchLoader
+
+    loader = PrefetchLoader(range(len(ds)), seed=loader_seed, num_workers=0)
+    sp = next(loader) % ds.ni
+    loader.close()
+    lo, hi = max(0, sp - ds.border), min(ds.ni - 1, sp + ds.border)
+    for seed in range(1000):
+        rng = np.random.default_rng(seed)
+        if ds.multi_person:
+            rng.integers(len(ds.root_list))
+        if rng.uniform() >= 0.5 and int(rng.integers(lo, hi + 1)) != sp:
+            return seed
+    raise AssertionError("no seed pairs two poses")
+
+
+def h36m_cli_on_the_card(dev, size=1000, eval_size=256, n_verts=6890,
+                         n_items=2, overrides=()):
+    """Phase 10 (c): ``run_nerf_batch_torch.main`` on the shipped
+    ``configs/h36m.txt`` (``--batch_size 1``, the items loaded in the loop
+    from a generator seeded so that the first pairs two poses) over a
+    ``size``^2 H36M-layout fixture linked
+    at the config's subject paths, then ``run_h36m_eval`` at
+    ``eval_size``^2 (the tables cut to one pose a pass).  Returns the
+    launches of both and the worst errors of K1 and K2 against their plain
+    versions on a cross-pose item's plain and smooth step."""
+    import math
+    import os
+    import pathlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import run_nerf_batch_torch
+    from mpsnerf_torch import factory
+    from mpsnerf_torch.data.h36m import H36MDatasetBatch
+    from mpsnerf_torch.eval import runner
+    from mpsnerf_torch.smpl.assets import load_smpl_models
+    from mpsnerf_torch.train.trainer import Trainer
+
+    on_card = torch.device(dev).type == "cuda"
+    config = pathlib.Path(__file__).resolve().parent / "configs" / "h36m.txt"
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="mpsnerf_h36m_") as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "fixture", "Posing")
+        write_h36m_subject(root, size, 3, 1000, n_verts)
+        for sub in ("H36M/S1", "h36m/S1", "h36m/S5", "h36m/S6", "h36m/S7",
+                    "h36m/S9"):
+            os.makedirs(os.path.join(tmp, "data", sub))
+            os.symlink(root, os.path.join(tmp, "data", sub, "Posing"))
+        log(f"[10] H36M-layout fixture: 4 cameras with distortion, {size}^2 "
+            f"x 3 frames, 1000 pose entries, {n_verts}-vertex neutral rig, "
+            f"PNG, linked at the config's 6 subject paths; written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        make, orig_item = factory.return_dataset, Trainer.train_item
+        pairs, crossing = [], []
+
+        def seeded(args, *a, **k):
+            ds = make(args, *a, **k)
+            ds.rng = np.random.default_rng(crossing_seed(ds, args.seed))
+            return ds
+
+        def spy_item(trainer, smpl, sp, tp):
+            pairs.append((int(sp["pose_index"]), int(tp["pose_index"])))
+            if pairs[-1][0] != pairs[-1][1] and not crossing:
+                crossing.extend((smpl, sp, tp))  # for K1/K2 below
+            return orig_item(trainer, smpl, sp, tp)
+
+        argv = ["--config", str(config), "--batch_size", "1", "--basedir",
+                os.path.join(tmp, "logs"), "--i_print", "4", "--i_weights",
+                "4", "--i_testset", "1000000", "--num_worker", "0",
+                "--N_iteration", str(4 * n_items - 1), "--device", str(dev),
+                *overrides]
+        try:
+            os.chdir(tmp)
+            factory.return_dataset, Trainer.train_item = seeded, spy_item
+            if on_card:
+                torch.cuda.synchronize()
+            reset_counts()
+            t1 = time.perf_counter()
+            with step_timer(on_card) as timer:
+                run = run_nerf_batch_torch.main(argv)
+            wall = time.perf_counter() - t1
+            cli_launches = read_counts()
+        finally:
+            factory.return_dataset, Trainer.train_item = make, orig_item
+            os.chdir(cwd)
+        recs = timer.records
+        finite = all(math.isfinite(float(x)) for r in recs
+                     for x in r["terms"])
+        gated = all(
+            (float(r["terms"].img) == float(r["terms"].img_raw)) == (s == t)
+            and float(r["terms"].img_raw) > 0
+            for r, (s, t) in zip(recs, [p for p in pairs for _ in range(4)]))
+        cross = sum(s != t for s, t in pairs)
+        ms = {kind: [r["ms"] for r in recs[1:] if r["smooth"] == kind]
+              for kind in (False, True)}
+        ok = (finite and gated and pairs[0][0] != pairs[0][1]
+              and len(recs) == 4 * n_items
+              and run.trainer.cfg.pair_mode and all(
+                  lg["n_dropped"] == 0 for lg in run.logs)
+              and all(cli_launches[k] > 0 for k in (
+                  "nearest_vertex", "vertex_buckets",
+                  "grid_sample_patch_fwd", "grid_sample_patch_bwd",
+                  "grid_sample_patch_bwd2")))
+        log(f"[10] CLI configs/h36m.txt --batch_size 1: {len(recs)} view-"
+            f"steps in {wall:.1f} s wall ({n_items} pair items, "
+            f"(source, target) poses {pairs}, {cross} across poses); "
+            f"view-steps ({'CUDA events' if on_card else 'wall'}) plain "
+            f"{[round(x, 1) for x in ms[False]]}, smooth "
+            f"{[round(x, 1) for x in ms[True]]} ms; item losses "
+            f"{[round(lg['loss'], 5) for lg in run.logs]}; the image term "
+            f"0 exactly across poses, img_raw > 0: {gated}; launches "
+            f"{json.dumps(cli_launches)}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(1)
+
+        # the eval protocol at eval_size^2 (the loader resizes every image
+        # to 1000^2, then scales it), the tables cut to one pose a pass
+        scale = eval_size / 1000.0
+
+        class Scaled(H36MDatasetBatch):
+            def __init__(self, *a, **k):
+                super().__init__(*a, image_scaling=scale, **k)
+
+        tables = {"H36M_POSES_NUM": [1], "H36M_NOVEL_VIEW_POSES_NUM": [1],
+                  "H36M_INPUT_POSE": [0], "H36M_START_POSE": [20]}
+        saved_tables = {k: getattr(runner, k) for k in tables}
+        savedir = os.path.join(tmp, "logs", "eval")
+        try:
+            os.chdir(tmp)
+            for k, v in tables.items():
+                setattr(runner, k, v)
+            smpl_models = load_smpl_models(device=dev)
+            reset_counts()
+            t1 = time.perf_counter()
+            metric = runner.run_h36m_eval(
+                run.args, run.trainer.model, lambda g: smpl_models[g],
+                savedir, dataset_cls=Scaled, verbose=False,
+                image_hw=eval_size, device=dev)
+            if on_card:
+                torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t1
+            eval_launches = read_counts()
+        finally:
+            for k, v in saved_tables.items():
+                setattr(runner, k, v)
+            os.chdir(cwd)
+        files = sorted(os.path.relpath(os.path.join(d, f), savedir)
+                       for d, _, fs in os.walk(savedir) for f in fs)
+        finite = all(np.isfinite(np.asarray(metric[k])).all() for k in (
+            "novel_view_psnr", "novel_view_ssim", "novel_pose_psnr",
+            "novel_pose_ssim"))
+        ok = finite and "metrics.json" in files and eval_launches[
+            "grid_sample_patch_fwd"] > 0
+        log(f"[10] run_h36m_eval at {eval_size}^2 (1 pose a pass, masked "
+            f"rays): {eval_s:.1f} s; psnr novel view "
+            f"{np.round(metric['novel_view_psnr'], 3).tolist()}, novel pose "
+            f"{np.round(metric['novel_pose_psnr'], 3).tolist()}, ssim "
+            f"{np.round(metric['novel_view_ssim'], 4).tolist()} / "
+            f"{np.round(metric['novel_pose_ssim'], 4).tolist()}; finite "
+            f"{finite}; {len(files)} files; launches "
+            f"{json.dumps(eval_launches)}: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(1)
+
+    # K1 and K2 on a plain and a smooth step of a cross-pose pair item at
+    # this path's shapes (the 1000^2 RGB, the 250^2 latent)
+    captured = capture_train_inputs(run.trainer, *crossing)
+    errs = compare_captured(captured, tag="H36M CLI ")
+    return {"h36m_cli": cli_launches, "h36m_eval": eval_launches}, errs
+
+
+def compare_variant_inputs(calls):
+    """Phase 2's comparisons on what the variant steps gave the kernels:
+    K1 on each call of the aggregate field's and the pair variant's plain
+    steps (the pair step's coarse-point 1-NN among them); K2's forward on
+    each captured call; its backward with the flags the plain step asked
+    for (a deform field puts the coordinate gradient on the latent and on
+    the RGB) and with both outputs; the smooth step's first double backward
+    on the latent with its flags and with every output.  Returns the worst
+    errors (K2's keyed by latent or RGB) and the captured plain-step
+    backward inputs."""
+    import torch
+
+    from mpsnerf_torch.ops import grid_sample as gs
+
+    err, bwd_inputs = {"nearest_vertex": 0.0}, {}
+    ok_all = True
+    knn_stages = {}
+    for stage, name, args in calls:
+        plain = stage.endswith("plain")
+        which = "latent" if args[1].shape[1] > 3 else "rgb"
+        if name == "nearest_vertex_cuda" and plain:
+            i = knn_stages[stage] = knn_stages.get(stage, 0) + 1
+            label = f"{stage} step call {i}"
+            if stage.startswith("pair") and i == 2:
+                label = "pair mode's coarse-point 1-NN"
+            e, _ = compare_knn(label, args[0], args[1], args[2])
+            err["nearest_vertex"] = max(err["nearest_vertex"], e)
+        elif name == "grid_sample_patch_fwd_cuda" and plain:
+            which = "latent" if args[0].shape[1] > 3 else "rgb"
+            ok, e = compare_fwd(f"{stage} step {which}", *args)
+            key = ("grid_sample_patch_fwd", which)
+            err[key] = max(err.get(key, 0.0), e)
+            ok_all &= ok
+        elif name == "grid_sample_patch_bwd_cuda" and plain:
+            need = tuple(args[3:5])
+            flags = (need,) if need == (True, True) else (need, (True, True))
+            ok, worst, text = compare_k2_bwd(f"{stage} {which}", *args[:3],
+                                             flags=flags)
+            # the RGB wants no image gradient; the latent does
+            ok &= need[0] == (which == "latent")
+            if need[1]:
+                bwd_inputs.setdefault((stage, which), (args[:3], need))
+            key = ("grid_sample_patch_bwd", which)
+            err[key] = max(err.get(key, 0.0), worst)
+            ok_all &= ok
+            log(f"[10] K2 backward of the {stage} step on the {which}, "
+                f"need {tuple(map(int, need))}, {text}: "
+                f"{'ok' if ok else 'FAIL'}")
+        elif (name == "grid_sample_patch_bwd2_cuda" and not plain
+              and which == "latent"
+              and ("grid_sample_patch_bwd2", "latent") not in err):
+            key = ("grid_sample_patch_bwd2", "latent")
+            err[key] = 0.0
+            for need in dict.fromkeys((tuple(args[-1]), (True, True, True))):
+                run = (*args[:-1], need)
+                with uncounted():
+                    k = gs.grid_sample_patch_bwd2_cuda(*run)
+                    torch.cuda.synchronize()
+                ok, worst, text = rel_errors(
+                    k, gs.grid_sample_patch_double_backward_plain(*run),
+                    ("d_g", "d_image", "d_coords"))
+                err[key] = max(err[key], worst)
+                ok_all &= ok
+                log(f"[10] K2 double backward of the {stage} step (a "
+                    f"deform field) on the latent, need "
+                    f"{tuple(map(int, need))}: {text}: "
+                    f"{'ok' if ok else 'FAIL'}")
+    # a coordinate gradient on both images (the deform field moves the
+    # projected points); the pair step's three 1-NN calls (the mask, the
+    # coarse points, the canonical points)
+    pair_calls = max((n for s, n in knn_stages.items()
+                      if s.startswith("pair")), default=0)
+    ok_all &= {k[1] for k in bwd_inputs} == {"latent", "rgb"} \
+        and pair_calls == 3
+    log(f"[10] captured: K1 calls per plain step {knn_stages}, K2 backward "
+        f"inputs {sorted(bwd_inputs)}: {'ok' if ok_all else 'FAIL'}")
+    if not ok_all:
+        raise SystemExit(1)
+    return err, bwd_inputs
+
+
+def time_variant_bwd(bwd_inputs):
+    """K2's backward with the coordinate gradient at the aggregate field's
+    plain-step inputs, latent and RGB, with the flags the step asked for:
+    the kernel's call time, the plain version's, autograd of
+    ``F.grid_sample`` (the yardstick) and the bound."""
+    from mpsnerf_torch.ops import grid_sample as gs
+
+    out = {}
+    for (stage, which), ((g, image, coords), need) in bwd_inputs.items():
+        if not stage.startswith("correction_field"):
+            continue
+        v, c, h, w = image.shape
+        bound, by = _bound(*_bwd_work(v, c, h, w, coords.shape[1], need))
+        with uncounted():
+            ms = cuda_ms(lambda: gs.grid_sample_patch_bwd_cuda(
+                g, image, coords, *need), 20)
+        plain = cuda_ms(lambda: gs.grid_sample_patch_backward_plain(
+            g, image, coords, *need), 3)
+        lib = cuda_ms(_library_bwd(g, image, coords, need), 20)
+        out[which] = {"shape": [v, c, h, w], "points": coords.shape[1],
+                      "need": list(need), "ms": ms, "plain_ms": plain,
+                      "library_ms": lib, "bound_ms": bound, "bound_by": by}
+        log(f"[10] K2 backward at the correction field's plain-step "
+            f"{which} inputs {(v, c, h, w)} x {coords.shape[1]}, need "
+            f"{tuple(map(int, need))}: kernel {ms:.4f} ms, plain "
+            f"{plain:.3f} ms, autograd of F.grid_sample {lib:.4f} ms "
+            f"(yardstick), bound {bound:.4f} ms ({by})")
+    return out
 
 
 def _bwd_work(v, c, h, w, n, need):
@@ -2496,6 +3200,26 @@ def main(argv=None):
     # ---- 9. the CLI on a THuman-layout fixture at full width
     merge_path(records, *cli_on_the_card(dev))
     log(f"[9] total {time.perf_counter() - t_start:.0f} s")
+    if stop_after <= 9:
+        return 0
+
+    # ---- 10. every option and variant; the shipped H36M config
+    t0 = time.perf_counter()
+    variant_launches, _, calls = train_variants(dev)
+    view_launches, _ = variant_views(dev, item, smpl)
+    h36m_launches, h36m_errs = h36m_cli_on_the_card(dev)
+    errs, bwd_inputs = compare_variant_inputs(calls)
+    del calls
+    bwd_times = time_variant_bwd(bwd_inputs)
+    merge_path(records, {"variants": variant_launches,
+                         "variant_views": view_launches, **h36m_launches},
+               errs)
+    merge_path(records, {}, h36m_errs)
+    for rec in records:
+        if rec["name"] == "grid_sample_patch_bwd":
+            rec["variant_plain_step"] = bwd_times
+    log(f"[10] phase in {time.perf_counter() - t0:.0f} s; total "
+        f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,16 @@
 
 Input is the JAX package's ``{"params": ..., "batch_stats": ...}`` tree as
 nested dicts of numpy arrays; output is a ``state_dict`` that
-``MPSNeRF.load_state_dict(strict=True)`` accepts.  It is the inverse of
+``MPSNeRF.load_state_dict(strict=True)`` accepts, for every option of
+the model: the encoders, the transformer, the MLP, ``latent_codes``, the
+sparse 3D encoder and the deform fields (``forward_deform``,
+``backward_correction``, ``backward_deform``).  It is the inverse of
 ``mpsnerf_tpu/compat/torch_import.py:convert_reference_state_dict``: conv
-kernels HWIO -> OIHW, Dense kernels transposed, BatchNorm scale/bias/mean/
-var -> weight/bias/running_mean/running_var.  This module reads plain
-arrays only and imports nothing of the JAX package.
+kernels HWIO -> OIHW, sparse-conv kernels (27, Cin, Cout) -> spconv's
+(Cout, 3, 3, 3, Cin), Dense kernels transposed, BatchNorm scale/bias/mean/
+var -> weight/bias/running_mean/running_var (``backward_correction``,
+which the reference converter does not read, is carried here only).  This
+module reads plain arrays only and imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -57,6 +62,11 @@ def encoder_state_dict(params: Dict, stats: Dict, prefix: str = ""):
         sd[blk + ".conv2.weight"] = _conv(bp["conv2"]["kernel"])
         _bn(sd, blk + ".bn1", bp["bn1"], bs["bn1"])
         _bn(sd, blk + ".bn2", bp["bn2"], bs["bn2"])
+        if "downsample_conv" in bp:
+            sd[blk + ".downsample.0.weight"] = _conv(
+                bp["downsample_conv"]["kernel"])
+            _bn(sd, blk + ".downsample.1", bp["downsample_bn"],
+                bs["downsample_bn"])
     return sd
 
 
@@ -80,6 +90,41 @@ def transformer_state_dict(params: Dict, prefix: str = ""):
     return sd
 
 
+# the JAX 3D encoder's layer names -> the reference's Sequential indices
+_ENCODER_3D = (("conv0_0", "conv0.0"), ("conv0_bn0", "conv0.1"),
+               ("conv0_1", "conv0.3"), ("conv0_bn1", "conv0.4"),
+               ("down0", "down0.0"), ("down0_bn", "down0.1"),
+               ("conv1_0", "conv1.0"), ("conv1_bn0", "conv1.1"),
+               ("conv1_1", "conv1.3"), ("conv1_bn1", "conv1.4"))
+
+
+def encoder_3d_state_dict(params: Dict, stats: Dict, prefix: str = ""):
+    """``SparseConvNet3D`` variables -> keys ``{prefix}conv0.*`` etc."""
+    sd: Dict[str, torch.Tensor] = {}
+    for src, dst in _ENCODER_3D:
+        if "kernel" in params[src]:
+            k = np.asarray(params[src]["kernel"])          # (27, Cin, Cout)
+            ci, co = k.shape[1:]
+            sd[prefix + dst + ".weight"] = _tensor(np.transpose(
+                k.reshape(3, 3, 3, ci, co), (4, 0, 1, 2, 3)))
+        else:
+            _bn(sd, prefix + dst, params[src]["BatchNorm_0"],
+                stats[src]["BatchNorm_0"])
+    return sd
+
+
+def deform_state_dict(params: Dict, prefix: str = ""):
+    """``DeformField`` params -> keys ``{prefix}pts_time_linears.{j}``,
+    ``{prefix}output_linear``."""
+    sd: Dict[str, torch.Tensor] = {}
+    j = 0
+    while f"fc{j}" in params:
+        _linear(sd, f"{prefix}pts_time_linears.{j}", params[f"fc{j}"])
+        j += 1
+    _linear(sd, prefix + "output_linear", params["out"])
+    return sd
+
+
 def from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``MPSNeRF`` variables -> the port's ``MPSNeRF`` state dict."""
     params = variables["params"]
@@ -96,4 +141,13 @@ def from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     for name in ("alpha_linear", "feature_linear", "views_linear",
                  "rgb_linear"):
         _linear(sd, name, params[name])
+    if "latent_codes" in params:
+        sd["latent_codes.weight"] = _tensor(params["latent_codes"]["embedding"])
+    if "encoder_3d" in params:
+        sd.update(encoder_3d_state_dict(params["encoder_3d"],
+                                        variables["batch_stats"]["encoder_3d"],
+                                        "encoder_3d."))
+    for field in ("forward_deform", "backward_correction", "backward_deform"):
+        if field in params:
+            sd.update(deform_state_dict(params[field], field + "."))
     return sd

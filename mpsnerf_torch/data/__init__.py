@@ -1,7 +1,7 @@
 """Host data for the port: the synthetic scene, the THuman and H36M
 loaders (``thuman.py``, ``h36m.py``, reading through ``imageio.py``), the
-prefetching loader, voxelization, the body grid, and the move of an
-item's arrays to the device."""
+prefetching loader, voxelization, the body grid, the sparse-conv plan, and
+the move of an item's arrays to the device."""
 
 from __future__ import annotations
 
@@ -12,6 +12,11 @@ import torch
 
 from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
 from mpsnerf_torch.data.voxelize import voxelize_vertices
+from mpsnerf_torch.models.sparse_conv import (
+    SparseConvPlan,
+    build_plan,
+    plan_to,
+)
 from mpsnerf_torch.ops.body_grid import BodyGrid, build_body_grid, grid_to
 
 # per-view ray and image stacks: read on the host by the view renderer
@@ -30,6 +35,16 @@ def attach_body_grid(item: Dict, voxel: float = 0.02) -> Dict:
     return item
 
 
+def attach_spconv_plan(item: Dict, canonical: bool = False) -> Dict:
+    """Add the sparse-conv gather tables of the item's voxelization
+    (``coord``/``out_sh``), which the correction field reads;
+    ``canonical`` also adds ``t_spconv_plan`` of the canonical grid."""
+    item["spconv_plan"] = build_plan(item["coord"], item["out_sh"])
+    if canonical:
+        item["t_spconv_plan"] = build_plan(item["t_coord"], item["t_out_sh"])
+    return item
+
+
 def to_device_input(item: Dict, device="cuda", rays: bool = False) -> Dict:
     """Host item -> tensors on ``device`` (nested params and the body grid
     included; host-only stacks and ``_``-prefixed caches skipped, except
@@ -41,6 +56,8 @@ def to_device_input(item: Dict, device="cuda", rays: bool = False) -> Dict:
             continue
         if isinstance(v, BodyGrid):
             out[k] = grid_to(v, device)
+        elif isinstance(v, SparseConvPlan):
+            out[k] = plan_to(v, device)
         elif isinstance(v, dict):
             out[k] = {kk: torch.as_tensor(np.array(vv), device=device)
                       for kk, vv in v.items()}
@@ -50,4 +67,4 @@ def to_device_input(item: Dict, device="cuda", rays: bool = False) -> Dict:
 
 
 __all__ = ["SyntheticHumanDataset", "voxelize_vertices", "attach_body_grid",
-           "to_device_input"]
+           "attach_spconv_plan", "to_device_input"]

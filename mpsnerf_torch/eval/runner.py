@@ -14,10 +14,15 @@ on one of two paths:
   the plan pre-pass, the capacity rounded up to a multiple of the tile,
   the fine pre-pass (exact 5 cm mask and nearest-vertex ids; ``fine``),
   the render, and the scatter of the rendered rays into the full image;
-- the chunked path (``global_compact=False`` or ``n_importance > 0``): the
-  rays, shuffled by a fixed permutation, in chunks of ``chunk`` through
-  :func:`render_rays` at ``eval_compact_fraction``; a chunk that dropped
-  points renders again uncompacted.
+- the chunked path (``global_compact=False``, ``n_importance > 0``, or a
+  model without the human-region mask, ``human_sample`` off, which
+  evaluates every sample and so has neither the global path nor the box
+  cull): the rays, shuffled by a fixed permutation, in chunks of
+  ``chunk`` through :func:`render_rays` at ``eval_compact_fraction``; a
+  chunk that dropped points renders again uncompacted.
+
+A model with a correction field reads the sparse-conv plan of the target
+and source items; it is attached to an item that has none.
 
 The JAX runner's capacity ladder and power-of-two ray padding exist so
 that XLA compiles few shapes; nothing compiles here, so capacities are the
@@ -33,7 +38,11 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from mpsnerf_torch.data import attach_body_grid, to_device_input
+from mpsnerf_torch.data import (
+    attach_body_grid,
+    attach_spconv_plan,
+    to_device_input,
+)
 from mpsnerf_torch.eval.protocol import evaluate_novel_view_pose
 from mpsnerf_torch.models.mps_nerf import MPSNeRF
 from mpsnerf_torch.renderer.render import (
@@ -193,10 +202,13 @@ class ViewRenderer:
         model = model.to(self.device).eval()
         self.model = model
         # the global path's plan covers only the stratified z ladder, so
-        # the hierarchical union takes the chunked path
-        self.global_compact = global_compact and n_importance == 0
+        # the hierarchical union takes the chunked path; the global path
+        # and the box cull both rest on the 5 cm mask's -80 fill, which a
+        # model without the human mask does not have
+        self.global_compact = (global_compact and n_importance == 0
+                               and model.human_sample)
         self.fine = fine
-        self.box_cull = box_cull
+        self.box_cull = box_cull and model.human_sample
         self.smpl_selector = smpl_selector
         self.chunk = chunk
         self.n_samples = n_samples
@@ -248,6 +260,10 @@ class ViewRenderer:
     def _prep_view(self, sp_item: Dict, tp_item: Dict, k: int, ray_mask):
         if "body_grid" not in tp_item:
             attach_body_grid(tp_item)
+        if self.model.correction_field:
+            for it in (tp_item, sp_item):
+                if "spconv_plan" not in it:
+                    attach_spconv_plan(it)
         sp = self._device_side(sp_item)
         tp = self._device_side(tp_item)
         smpl = self.smpl_selector(int(sp_item["gender"])).to(self.device)
@@ -515,10 +531,12 @@ class _SourceThenWindow:
 
 def run_h36m_eval(args, model: MPSNeRF, smpl_selector: Callable,
                   savedir: str, dataset_cls=None, verbose: bool = True,
-                  device="cuda") -> Dict:
+                  image_hw: int = 1000, device="cuda") -> Dict:
     """``test_H36M`` for the subject ``args.test_persons``: novel view
     camera 3 at 1000 x 1000, only the rays of ``mask_at_box`` rendered,
-    the ground truth the unmasked image ``o_img_all``."""
+    the ground truth the unmasked image ``o_img_all``.  ``image_hw`` is
+    the square frame the renders are read as (1000 in the reference; a
+    ``dataset_cls`` that scales its images sets another)."""
     if dataset_cls is None:
         from mpsnerf_torch.data.h36m import H36MDatasetBatch as dataset_cls
 
@@ -564,6 +582,6 @@ def run_h36m_eval(args, model: MPSNeRF, smpl_selector: Callable,
         return np.asarray(item["o_img_all"][k]).transpose(1, 2, 0)
 
     return evaluate_novel_view_pose(
-        render_view, humans, H36M_NOVEL_VIEW, 1000, 1000, savedir,
+        render_view, humans, H36M_NOVEL_VIEW, image_hw, image_hw, savedir,
         start_poses={name: H36M_START_POSE[p]}, verbose=verbose,
         gt_fn=gt_fn, render_async=(dispatch, renderer.finish_view))

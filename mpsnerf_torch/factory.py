@@ -1,10 +1,11 @@
 """Model and dataset factories (port of ``mpsnerf_tpu/factory.py``).
 
-``return_model`` builds the flagship model, ``skinning_batch`` at the
-flagship's flags; ``return_dataset`` maps ``--data_set_type`` to a loader
-with the split's windowing arguments.  Every other model name, model flag
-or data set raises ``NotImplementedError`` naming the ``ROADMAP.md`` item
-that ports it.
+``return_model`` maps ``--model`` to ``MPSNeRF`` with the variant's flags
+over the command line's (``_MODEL_VARIANTS``, the JAX package's table);
+``return_dataset`` maps ``--data_set_type`` to a loader with the split's
+windowing arguments.  The numpy-era ``correction_by_f3d*`` and
+``correction_by_uvh_agg*`` models and unknown names raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,32 +16,59 @@ from mpsnerf_torch.models.mps_nerf import MPSNeRF
 
 PAIR_DATA_SETS = ("H36M_P", "THuman_P")
 
-# the flagship's model flags, as MPSNeRF implements them
-FLAGSHIP_FLAGS = {
-    "use_trans": 1, "append_rgb": 1, "with_viewdirs": 0, "human_sample": 1,
-    "mean_shape": 0, "correction_field": 0, "skinning_field": 0,
+# model string -> flags over the command line's (the reference's variants
+# share the SKinningBatch pipeline with other deform stages)
+_MODEL_VARIANTS = {
+    "skinning_batch": {},
+    # CoarseBatch: the pure LBS warp, no correction or skinning field
+    "coarse_batch": {"correction_field": False, "skinning_field": False},
+    # CorrectionBatch: the instance-style correction field, forward on the
+    # canonical points and backward on the source-pose points
+    "correction_batch": {
+        "correction_field": True,
+        "skinning_field": False,
+        "correction_style": "instance",
+    },
+    # DirectDeform: the MLP reads the fused 2D feature only (no PE of the
+    # canonical points); its deform fields are unused in the reference
+    "direct_deform": {
+        "correction_field": False,
+        "skinning_field": False,
+        "pe_condition": False,
+    },
+    # CorrectionBatchBlend: the rgb head blends the sampled image rgb
+    "correction_batch_blend": {"blend_rgb": True},
 }
 
 
 def return_model(args: Any) -> MPSNeRF:
-    if args.model != "skinning_batch":
+    name = args.model
+    if name.startswith(("correction_by_f3d", "correction_by_uvh_agg")):
         raise NotImplementedError(
-            f"model '{args.model}' is not ported: only skinning_batch is "
-            "(ROADMAP.md item 6: the model variants, CorrectionF3D, "
-            "CorrectionUvhAgg and the vanilla NeRF)")
-    off = [f"--{k} {getattr(args, k)} (the port needs {v})"
-           for k, v in FLAGSHIP_FLAGS.items() if int(getattr(args, k)) != v]
-    if getattr(args, "compute_dtype", "float32") != "float32":
-        off.append(f"--compute_dtype {args.compute_dtype} (float32 only)")
-    if args.data_set_type in PAIR_DATA_SETS:
-        off.append(f"--data_set_type {args.data_set_type} (pair training)")
-    if off:
+            f"model '{name}' (CorrectionF3D / CorrectionUvhAgg, "
+            "models/correction_f3d.py) is not ported yet (ROADMAP.md item "
+            "6)")
+    if name not in _MODEL_VARIANTS:
         raise NotImplementedError(
-            "skinning_batch with " + ", ".join(off) + " is not ported "
-            "(ROADMAP.md item 6: the non-flagship model options)")
+            f"model '{name}' is not available: "
+            + ", ".join(sorted(_MODEL_VARIANTS)))
     fraction = getattr(args, "compact_fraction", None)
-    return MPSNeRF(compact_fraction=fraction if fraction not in (None, 0)
-                   else None)
+    kwargs = dict(
+        num_instances=args.num_instance,
+        use_transformer=bool(args.use_trans),
+        append_rgb=bool(args.append_rgb),
+        with_viewdirs=bool(args.with_viewdirs),
+        human_sample=bool(args.human_sample),
+        mean_shape=bool(args.mean_shape),
+        correction_field=bool(args.correction_field),
+        skinning_field=bool(args.skinning_field),
+        pair_mode=args.data_set_type in PAIR_DATA_SETS,
+        n_input_views=args.view_num,
+        compute_dtype=getattr(args, "compute_dtype", "float32"),
+        compact_fraction=fraction if fraction not in (None, 0) else None,
+    )
+    kwargs.update(_MODEL_VARIANTS[name])
+    return MPSNeRF(**kwargs)
 
 
 def _windowing(args, split):

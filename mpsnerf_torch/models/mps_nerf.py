@@ -1,17 +1,23 @@
-"""The flagship generalizable human NeRF (port of
-``mpsnerf_tpu/models/mps_nerf.py`` at the flagship configuration:
-transformer fusion, appended rgb, human-region sampling, no correction or
-skinning fields, ``mean_shape`` off, PE-conditioned MLP, fp32).
+"""The generalizable human NeRF (port of ``mpsnerf_tpu/models/
+mps_nerf.py``, every option of the JAX class).
 
 Per query point (world space, target pose):
   1. world -> target SMPL space;
   2. human-region mask: 1-NN distance to the posed SMPL vertices < 5 cm;
   3. inverse LBS to the canonical big pose;
-  4. canonical 1-NN, forward LBS to the source pose and world;
-  5. projection into each source view, patch sampling of the latent and
+  4. optionally the correction field (a zero-init MLP on the PE'd points
+     and the sparse 3D encoder's features, with the view-averaged latent
+     (``"aggregate"``) or the target pose and an instance code
+     (``"instance"``)) moves the canonical points;
+  5. canonical 1-NN, forward LBS to the source pose and world, the blend
+     weights optionally corrected by the skinning field; the instance
+     style corrects the source-pose points a second time;
+  6. projection into each source view, patch sampling of the latent and
      the PE'd image rgb;
-  6. transformer fusion across views -> f1 (density), f2 (rgb);
-  7. NeRF MLP -> (rgb, sigma); masked points get raw = -80.
+  7. transformer fusion across views (or their mean) -> f1 (density), f2
+     (rgb);
+  8. NeRF MLP -> (rgb, sigma), the rgb optionally a softmax blend of the
+     sampled image rgb (``blend_rgb``); masked points get raw = -80.
 
 With ``compute_normals`` (the smooth-loss train step) the occupancy normal
 is the gradient of the tail's density by the canonical points, taken with
@@ -19,10 +25,17 @@ is the gradient of the tail's density by the canonical points, taken with
 SMPL vertex's normal comes with it.  The encoder's BatchNorm follows the
 module's train/eval mode.
 
+``compute_dtype="bfloat16"`` runs the MLP's and the transformer's
+products in bf16 (parameters, geometry, LayerNorm statistics, softmax and
+compositing stay fp32).  Sub-modules exist only where a flag reads them
+(``latent_codes`` for the skinning field and the instance correction, the
+3D encoder and the deform fields for theirs), so the flagship's state dict
+is unchanged.  ``human_sample=False`` evaluates every point (no 5 cm mask,
+no compaction).
+
 Module names follow the reference checkpoint, so ``state_dict()`` is what
-``mpsnerf_tpu/compat/torch_import.py:convert_reference_state_dict`` reads.
-The reference's per-instance ``latent_codes`` are only read by the
-skinning field, which this configuration leaves off, so they are absent.
+``mpsnerf_tpu/compat/torch_import.py:convert_reference_state_dict`` reads
+(except ``backward_correction``, which it does not map).
 """
 
 from __future__ import annotations
@@ -35,8 +48,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mpsnerf_torch.models.layers import TorchLinear
+from mpsnerf_torch.models.deform import DeformField
+from mpsnerf_torch.models.layers import TorchLinear, compute_dtype_of
 from mpsnerf_torch.models.resnet import SpatialEncoder
+from mpsnerf_torch.models.sparse_conv import SparseConvNet3D
 from mpsnerf_torch.models.transformer import ViewFusionTransformer
 from mpsnerf_torch.ops.body_grid import grid_lookup
 from mpsnerf_torch.ops.compact import compact, expand_gather, plan_compaction
@@ -54,6 +69,7 @@ from mpsnerf_torch.smpl.lbs import (
     PoseTransforms,
     deform_canonical_to_source,
     deform_target_to_canonical,
+    smpl_to_world,
     world_to_smpl,
 )
 from mpsnerf_torch.smpl.mesh import vertex_normals
@@ -61,13 +77,14 @@ from mpsnerf_torch.smpl.model import SMPLModel
 
 HUMAN_DIST_THRESHOLD_SQ = 0.05 ** 2  # 5 cm
 MASK_FILL = -80.0
-NERF_WIDTH, NERF_DEPTH, NERF_SKIPS = 256, 8, (4,)
+INSTANCE_CODE = 128  # the per-instance embedding's width
+SPCONV_CH = 32       # the sparse 3D encoder's output channels
 
 
 class RawOutput(NamedTuple):
     """The JAX package's ``RawOutput``, in its field order.  The
-    correction fields are zeros in this configuration; the normals are
-    zeros unless ``compute_normals``."""
+    correction fields are zeros without a correction field; the normals
+    are zeros unless ``compute_normals``."""
 
     rgb: torch.Tensor                  # (N, 3) pre-activation (masked: -80)
     sigma: torch.Tensor                # (N,)   pre-activation (masked: -80)
@@ -84,30 +101,108 @@ class RawOutput(NamedTuple):
 
 
 class MPSNeRF(nn.Module):
-    """Generalizable human NeRF with LBS canonicalization.
+    """Generalizable human NeRF with LBS canonicalization; the JAX class's
+    fields under its names and defaults.
 
     ``compact_fraction``: the tail capacity of a query as a fraction of its
     points (train batches run ~35-42 % in-body samples, hence 0.5; eval
     renders use tighter fractions, see ``eval/runner.py``).  None runs the
-    tail on every point, uncompacted (exact at any in-body share)."""
+    tail on every point, uncompacted (exact at any in-body share).
+    ``bn_axis_name`` (the sharded trainer's cross-replica BatchNorm) is not
+    ported: anything but None raises."""
 
-    def __init__(self, compact_fraction: Optional[float] = 0.5):
+    def __init__(
+        self,
+        num_instances: int = 25,
+        use_transformer: bool = True,
+        append_rgb: bool = True,
+        with_viewdirs: bool = False,
+        human_sample: bool = True,
+        mean_shape: bool = False,
+        correction_field: bool = False,
+        skinning_field: bool = False,
+        correction_style: str = "aggregate",
+        pe_condition: bool = True,
+        compute_dtype: str = "float32",
+        encoder_layers: int = 2,
+        nerf_width: int = 256,
+        nerf_depth: int = 8,
+        nerf_skips: tuple = (4,),
+        bn_axis_name: Optional[str] = None,
+        pair_mode: bool = False,
+        blend_rgb: bool = False,
+        n_input_views: int = 3,
+        compact_fraction: Optional[float] = 0.5,
+    ):
         super().__init__()
+        if bn_axis_name is not None:
+            raise NotImplementedError(
+                f"bn_axis_name {bn_axis_name!r}: cross-replica BatchNorm "
+                "belongs to the sharded trainer, not ported (ROADMAP.md "
+                "item 8)")
+        if correction_style not in ("aggregate", "instance"):
+            raise ValueError(f"correction_style {correction_style!r}: "
+                             "aggregate or instance")
+        self.num_instances = num_instances
+        self.use_transformer = bool(use_transformer)
+        self.append_rgb = bool(append_rgb)
+        self.with_viewdirs = bool(with_viewdirs)
+        self.human_sample = bool(human_sample)
+        self.mean_shape = bool(mean_shape)
+        self.correction_field = bool(correction_field)
+        self.skinning_field = bool(skinning_field)
+        self.correction_style = correction_style
+        self.pe_condition = bool(pe_condition)
+        self.compute_dtype = compute_dtype
+        self.nerf_skips = tuple(nerf_skips)
+        self.pair_mode = bool(pair_mode)
+        self.blend_rgb = bool(blend_rgb)
+        self.n_input_views = n_input_views
         self.compact_fraction = compact_fraction
-        self.encoder_2d = SpatialEncoder()
-        feat_ch = SpatialEncoder.LATENT_CHANNELS + pe_dim(4)  # + PE'd rgb
-        self.transformer = ViewFusionTransformer(dim=feat_ch)
-        in_ch = pe_dim(6) + feat_ch
-        w = NERF_WIDTH
+        cdt = compute_dtype_of(compute_dtype)
+        self._cdt = cdt
+        instance = self.correction_field and correction_style == "instance"
+
+        self.encoder_2d = SpatialEncoder(encoder_layers)
+        lat_ch = self.encoder_2d.latent_channels
+        feat_ch = lat_ch + (pe_dim(4) if self.append_rgb else 0)
+        if self.use_transformer:
+            self.transformer = ViewFusionTransformer(dim=feat_ch, dtype=cdt)
+        if self.skinning_field or instance:
+            self.latent_codes = nn.Embedding(num_instances, INSTANCE_CODE)
+            nn.init.normal_(self.latent_codes.weight, std=0.01)
+        if self.correction_field:
+            self.encoder_3d = SparseConvNet3D()
+            if instance:
+                # PE + target poses + instance code + 3D feature, depth 4
+                in_c = pe_dim(6) + 72 + INSTANCE_CODE + SPCONV_CH
+                self.forward_deform = DeformField(
+                    in_c, depth=4, out_ch=3, deform_type="correction")
+                self.backward_correction = DeformField(
+                    in_c, depth=4, out_ch=3, deform_type="correction")
+            else:
+                # PE + 3D feature + the view-averaged latent, depth 2
+                self.forward_deform = DeformField(
+                    pe_dim(6) + SPCONV_CH + lat_ch, depth=2, out_ch=3,
+                    deform_type="correction")
+        if self.skinning_field:
+            self.backward_deform = DeformField(
+                pe_dim(6) + INSTANCE_CODE, depth=4, out_ch=24,
+                deform_type="weights")
+
+        in_ch = (pe_dim(6) if self.pe_condition else 0) + feat_ch
+        w = nerf_width
+        widths = [in_ch] + [w + (in_ch if i in self.nerf_skips else 0)
+                            for i in range(nerf_depth)]
         self.pts_linears = nn.ModuleList(
-            [TorchLinear(in_ch, w)]
-            + [TorchLinear(w + (in_ch if i in NERF_SKIPS else 0), w)
-               for i in range(NERF_DEPTH - 1)]
-        )
-        self.alpha_linear = TorchLinear(w, 1)
-        self.feature_linear = TorchLinear(w, w)
-        self.views_linear = TorchLinear(w + feat_ch, w // 2)
-        self.rgb_linear = TorchLinear(w // 2, 3)
+            [TorchLinear(widths[i], w, dtype=cdt) for i in range(nerf_depth)])
+        self.alpha_linear = TorchLinear(widths[-1], 1, dtype=cdt)
+        self.feature_linear = TorchLinear(widths[-1], w, dtype=cdt)
+        self.views_linear = TorchLinear(
+            w + (pe_dim(4) if self.with_viewdirs else 0) + feat_ch, w // 2,
+            dtype=cdt)
+        self.rgb_linear = TorchLinear(
+            w // 2, n_input_views if self.blend_rgb else 3, dtype=cdt)
 
     def with_compact_fraction(self, fraction: Optional[float]) -> "MPSNeRF":
         """The same model at another ``compact_fraction`` (JAX's
@@ -127,17 +222,32 @@ class MPSNeRF(nn.Module):
 
     # ---- stage 2: per-point query ------------------------------------------
 
-    def _nerf_mlp(self, can_pts, f1, f2):
-        x = torch.cat([positional_encoding(can_pts, 6), f1], dim=-1)
+    def _nerf_mlp(self, can_pts, f1, f2, viewdirs, rgb_samples=None):
+        x = (torch.cat([positional_encoding(can_pts, 6), f1], dim=-1)
+             if self.pe_condition else f1)
+        if self._cdt is not None:
+            # one cast up front keeps the skip concatenations in bf16
+            x, f2 = x.to(self._cdt), f2.to(self._cdt)
         h = x
         for i, layer in enumerate(self.pts_linears):
             h = F.relu(layer(h))
-            if i in NERF_SKIPS:
+            if i in self.nerf_skips:
                 h = torch.cat([x, h], dim=-1)
         alpha = self.alpha_linear(h)[..., 0]
-        h = torch.cat([self.feature_linear(h), f2], dim=-1)
+        feature = self.feature_linear(h)
+        if self.with_viewdirs:
+            vd = positional_encoding(viewdirs, 4).to(feature.dtype)
+            h = torch.cat([feature, vd, f2], dim=-1)
+        else:
+            h = torch.cat([feature, f2], dim=-1)
         h = F.relu(self.views_linear(h))
-        return self.rgb_linear(h), alpha
+        if self.blend_rgb:
+            # per-view weights of the sampled image rgb, blended in fp32
+            wts = torch.softmax(self.rgb_linear(h).float(), dim=-1)  # (N, V)
+            rgb = torch.einsum("nv,vnc->nc", wts, rgb_samples)
+        else:
+            rgb = self.rgb_linear(h)
+        return rgb.float(), alpha.float()
 
     @staticmethod
     def _project_uv(sp_input, world_src_pts):
@@ -151,19 +261,50 @@ class MPSNeRF(nn.Module):
         pix = torch.einsum("vij,vnj->vni", K_all, cam)
         return pix[..., :2] / (pix[..., 2:] + 1e-5), image_size
 
-    def _view_features(self, sp_input, latent, world_src_pts):
+    def _view_features(self, sp_input, latent, world_src_pts, fuse=True):
         """Project points into each source view, sample pixel-aligned
-        features (+ PE'd image rgb), fuse across views -> (f1, f2)."""
+        features (+ PE'd image rgb), fuse across views -> (f1, f2, the
+        sampled rgb (V, N, 3) or None).  ``fuse=False`` returns the
+        per-view latent samples (V, N, C) alone."""
         uv, image_size = self._project_uv(sp_input, world_src_pts)
         feats = index_features_patch(latent, uv, image_size).permute(0, 2, 1)
-        size = torch.as_tensor(image_size, dtype=uv.dtype, device=uv.device)
-        rgb_s = grid_sample_2d_patch(
-            sp_input["img_all"], 2.0 * uv / size - 1.0
-        ).permute(0, 2, 1)  # (V, N, 3)
-        feats = torch.cat([feats, positional_encoding(rgb_s, 4)], dim=-1)
-        # only fused[0] (density) and fused[1] (rgb) are read
-        fused = self.transformer(feats, out_views=2)
-        return fused[0], fused[1]
+        if not fuse:
+            return feats
+        rgb_s = None
+        if self.append_rgb or self.blend_rgb:
+            size = torch.as_tensor(image_size, dtype=uv.dtype,
+                                   device=uv.device)
+            rgb_s = grid_sample_2d_patch(
+                sp_input["img_all"], 2.0 * uv / size - 1.0
+            ).permute(0, 2, 1)  # (V, N, 3)
+        if self.append_rgb:
+            feats = torch.cat([feats, positional_encoding(rgb_s, 4)], dim=-1)
+        if self.use_transformer:
+            # only fused[0] (density) and fused[1] (rgb) are read
+            fused = self.transformer(feats, out_views=2)
+            return fused[0], fused[1], rgb_s
+        mean = torch.mean(feats, dim=0)
+        return mean, mean, rgb_s
+
+    def _instance_code(self, item, k):
+        idx = item["instance_idx"].reshape(1).long()
+        return self.latent_codes(idx)[0].expand(k, INSTANCE_CODE)
+
+    def _instance_input(self, pts, item, p3d):
+        """The instance style's field input: PE, the item's poses (72),
+        its instance code (128), the 3D feature."""
+        k = pts.shape[0]
+        poses = item["params"]["poses"].reshape(1, 72).expand(k, 72)
+        return torch.cat([positional_encoding(pts, 6), poses,
+                          self._instance_code(item, k), p3d], dim=-1)
+
+    def _features_3d(self, item, pts):
+        """The 3D encoder on the item's voxel grid at its points,
+        normalized to the item's bounds."""
+        b = item["bounds"]
+        center, half = 0.5 * (b[0] + b[1]), 0.5 * (b[1] - b[0])
+        return self.encoder_3d(item["feature"], item["spconv_plan"],
+                               (pts - center) / half)
 
     def query(
         self,
@@ -181,11 +322,13 @@ class MPSNeRF(nn.Module):
         as in the JAX package: caller-supplied nearest-vertex ids (every
         point in-body), the body-grid cull with compaction (when compaction
         is on and the target has a body grid), or one exact 1-NN over every
-        point, compacted unless ``compact_fraction`` is None.
-        ``t_buckets``: the 1-NN buckets of
+        point, compacted unless ``compact_fraction`` is None or
+        ``human_sample`` is off.  ``t_buckets``: the 1-NN buckets of
         ``sp_input["t_vertices"]``; a caller that queries a view tile by
         tile builds them once and passes them, else they are built here,
-        once per query (for a CUDA table; a CPU one needs none)."""
+        once per query (for a CUDA table; a CPU one needs none).  The 3D
+        encoder's BatchNorm and the encoder's follow the module's train/
+        eval mode."""
         n = world_pts.shape[0]
         tf_t = PoseTransforms.create(smpl, tp_input["params"])
         tf_s = PoseTransforms.create(smpl, sp_input["params"])
@@ -195,7 +338,7 @@ class MPSNeRF(nn.Module):
         smpl_query_pts = world_to_smpl(world_pts, tf_t.R, tf_t.Th)
         q_stop = smpl_query_pts.detach()
 
-        use_compact = self.compact_fraction is not None
+        use_compact = self.compact_fraction is not None and self.human_sample
         capacity = max(1024, min(
             int(np.ceil(n * (self.compact_fraction or 0) / 1024)) * 1024, n))
         if nn_ids is not None:
@@ -217,7 +360,11 @@ class MPSNeRF(nn.Module):
         else:
             tar_smpl_pts = world_to_smpl(tp_input["vertices"], tf_t.R, tf_t.Th)
             d2, vert_ids_t = nearest_vertex(q_stop, tar_smpl_pts)
-            pts_mask = (d2 < HUMAN_DIST_THRESHOLD_SQ).to(torch.int32)
+            if self.human_sample:
+                pts_mask = (d2 < HUMAN_DIST_THRESHOLD_SQ).to(torch.int32)
+            else:
+                pts_mask = torch.ones(n, dtype=torch.int32,
+                                      device=world_pts.device)
             q_pts, q_ids = smpl_query_pts, vert_ids_t
             if use_compact:
                 cplan = plan_compaction(pts_mask, capacity)
@@ -228,27 +375,68 @@ class MPSNeRF(nn.Module):
             n_dropped = torch.clamp(cplan.n_valid - capacity, min=0)
 
         can_pts = deform_target_to_canonical(
-            smpl, tf_t, q_pts, q_ids, mean_shape=False)
+            smpl, tf_t, q_pts, q_ids, mean_shape=self.mean_shape)
         t_vertices = sp_input["t_vertices"]
         if t_buckets is None:
             t_buckets = kernel_buckets(t_vertices)
+
+        correction_c = None
+        if self.correction_field:
+            p3d = self._features_3d(tp_input, q_pts)  # (K, 32)
+            if self.correction_style == "instance":
+                fused = self._instance_input(q_pts, tp_input, p3d)
+            else:
+                if self.pair_mode:
+                    # the latent at the coarse points warped to the source
+                    # pose (one more canonical 1-NN)
+                    _, ids = nearest_vertex(can_pts.detach().contiguous(),
+                                            t_vertices, t_buckets)
+                    _, agg_pts, _ = deform_canonical_to_source(
+                        smpl, tf_s, can_pts, ids, self.mean_shape)
+                else:
+                    agg_pts = (compact(cplan, world_pts) if cplan is not None
+                               else world_pts).detach()
+                agg = self._view_features(sp_input, latent, agg_pts,
+                                          fuse=False).mean(dim=0)
+                fused = torch.cat([positional_encoding(q_pts, 6), p3d, agg],
+                                  dim=-1)
+            correction_c = self.forward_deform(fused)
+            can_pts = can_pts + correction_c
+
+        instance = self.correction_field and \
+            self.correction_style == "instance"
 
         def tail(can):
             # canonical 1-NN (no gradient), forward LBS, conditioning, MLP
             _, ids_c = nearest_vertex(can.detach().contiguous(), t_vertices,
                                       t_buckets)
+            weights_corr = None
+            if self.skinning_field:
+                code = torch.cat([positional_encoding(can, 6),
+                                  self._instance_code(tp_input,
+                                                      can.shape[0])], dim=-1)
+                weights_corr = self.backward_deform(code)
             src, world, bw = deform_canonical_to_source(
-                smpl, tf_s, can, ids_c, mean_shape=False)
-            f1, f2 = self._view_features(sp_input, latent, world)
-            rgb_, alpha_ = self._nerf_mlp(can, f1, f2)
-            return alpha_, rgb_, src, world, bw, ids_c
+                smpl, tf_s, can, ids_c, self.mean_shape, weights_corr)
+            corr_b = None
+            if instance:
+                # the backward correction of the source-pose points, from
+                # the source's voxel grid at the (detached) warped points
+                p3d_s = self._features_3d(sp_input, src.detach())
+                corr_b = self.backward_correction(
+                    self._instance_input(src, sp_input, p3d_s))
+                src = src + corr_b
+                world = smpl_to_world(src, tf_s.R, tf_s.Th)
+            f1, f2, rgb_s = self._view_features(sp_input, latent, world)
+            rgb_, alpha_ = self._nerf_mlp(can, f1, f2, viewdirs, rgb_s)
+            return alpha_, rgb_, src, world, bw, ids_c, corr_b
 
         if compute_normals:
             with torch.enable_grad():
                 if not can_pts.requires_grad:
                     can_pts = can_pts.detach().requires_grad_(True)
-                alpha, rgb, smpl_src, world_src, bweights, vert_ids_c = \
-                    tail(can_pts)
+                alpha, rgb, smpl_src, world_src, bweights, vert_ids_c, \
+                    correction_b = tail(can_pts)
                 # occ_normal = d wide_sigmoid(alpha) / d can_pts; the
                 # cotangent stays in the graph (its own derivative is part
                 # of the smooth loss's gradient, as under jax.vjp)
@@ -266,38 +454,41 @@ class MPSNeRF(nn.Module):
             nearest_smpl_normal = vertex_normals(
                 t_vertices, smpl.faces)[vert_ids_c]
         else:
-            alpha, rgb, smpl_src, world_src, bweights, vert_ids_c = \
-                tail(can_pts)
+            alpha, rgb, smpl_src, world_src, bweights, vert_ids_c, \
+                correction_b = tail(can_pts)
             occ_normal = nearest_smpl_normal = None
 
         if cplan is not None:
             # effective mask: valid AND within capacity, AND the branch's
             # own mask (beyond-5cm body-grid candidates)
             pts_mask = pts_mask * cplan.take.to(torch.int32)
-            rgb = expand_gather(cplan, rgb, 0.0)
-            alpha = expand_gather(cplan, alpha, 0.0)
-            smpl_src = expand_gather(cplan, smpl_src, 0.0)
-            world_src = expand_gather(cplan, world_src, 0.0)
-            bweights = expand_gather(cplan, bweights, 0.0)
-            if compute_normals:
-                occ_normal = expand_gather(cplan, occ_normal, 0.0)
-                nearest_smpl_normal = expand_gather(
-                    cplan, nearest_smpl_normal, 0.0)
+
+            def expand(x):
+                return None if x is None else expand_gather(cplan, x, 0.0)
+
+            rgb, alpha, smpl_src, world_src, bweights, occ_normal, \
+                nearest_smpl_normal, correction_c, correction_b = map(
+                    expand, (rgb, alpha, smpl_src, world_src, bweights,
+                             occ_normal, nearest_smpl_normal, correction_c,
+                             correction_b))
 
         maskf = pts_mask.to(rgb.dtype)[:, None]
-        zeros = rgb.new_zeros(rgb.shape[0], 3)  # no correction field here
+        zeros = rgb.new_zeros(rgb.shape[0], 3)
+
+        def zmask(x):
+            return zeros if x is None else x * maskf
+
         return RawOutput(
             rgb=torch.where(maskf > 0, rgb, torch.full_like(rgb, MASK_FILL)),
             sigma=torch.where(maskf[:, 0] > 0, alpha,
                               torch.full_like(alpha, MASK_FILL)),
             pts_mask=pts_mask,
-            correction=zeros,
-            correction_=zeros,
+            correction=zmask(correction_c),
+            correction_=zmask(correction_b),
             smpl_query_pts=smpl_query_pts * maskf,
             smpl_src_pts=smpl_src * maskf,
-            occ_normal=zeros if occ_normal is None else occ_normal * maskf,
-            nearest_smpl_normal=(zeros if nearest_smpl_normal is None
-                                 else nearest_smpl_normal * maskf),
+            occ_normal=zmask(occ_normal),
+            nearest_smpl_normal=zmask(nearest_smpl_normal),
             world_src_pts=world_src,
             bweights=bweights,
             n_dropped=n_dropped,

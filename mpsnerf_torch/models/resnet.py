@@ -1,12 +1,14 @@
-"""Pixel-aligned 2D image encoder: the first two stages of ResNet-34 (port
-of ``mpsnerf_tpu/models/resnet.py:SpatialEncoder`` at ``num_layers=2``).
+"""Pixel-aligned 2D image encoder: the first stages of ResNet-34 (port
+of ``mpsnerf_tpu/models/resnet.py:SpatialEncoder``).
 
-A 2x2 area downsample of the input, conv1 + BN + ReLU, then ``layer1``
-(three 64-channel BasicBlocks, no max-pool); both stage outputs share one
-resolution, so the align-corners resize is the identity and they are
-concatenated: 128 channels at 1/4 of the input resolution.  Module names
-follow the reference checkpoint (``encoder_2d.model.*``, torchvision's
-ResNet names).
+A 2x2 area downsample of the input, conv1 + BN + ReLU, then the first
+``num_layers - 1`` residual stages (no max-pool; stage 1 at stride 1, the
+later ones at stride 2); every stage output is resized (bilinear,
+align_corners) to the first one's resolution and all are concatenated:
+64 * ``num_layers`` channels at 1/4 of the input resolution (128 at the
+trained ``num_layers = 2``, where the resize is the identity).  Module
+names follow the reference checkpoint (``encoder_2d.model.*``,
+torchvision's ResNet names).
 
 BatchNorm follows flax's ``nn.BatchNorm`` (momentum 0.9, eps 1e-5), not
 torch's: in train mode it normalises with the biased batch variance
@@ -45,46 +47,74 @@ class BatchNorm2d(nn.BatchNorm2d):
                 + self.bias[:, None, None])
 
 
-class BasicBlock(nn.Module):
-    """A stride-1 ResNet BasicBlock with equal in/out channels."""
+_STAGE_BLOCKS = (3, 4, 6, 3)  # ResNet-34
+_STAGE_CHANNELS = (64, 128, 256, 512)
 
-    def __init__(self, ch: int):
+
+class BasicBlock(nn.Module):
+    """A ResNet BasicBlock; a strided or widening one has torchvision's
+    ``downsample`` (1x1 conv + BN) on its residual."""
+
+    def __init__(self, cin: int, ch: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(ch, ch, 3, 1, 1, bias=False)
+        self.conv1 = nn.Conv2d(cin, ch, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm2d(ch, eps=1e-5, momentum=0.1)
         self.conv2 = nn.Conv2d(ch, ch, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+        self.downsample = None
+        if stride != 1 or cin != ch:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(cin, ch, 1, stride, bias=False),
+                BatchNorm2d(ch, eps=1e-5, momentum=0.1))
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
-        return F.relu(self.bn2(self.conv2(y)) + x)
+        res = x if self.downsample is None else self.downsample(x)
+        return F.relu(self.bn2(self.conv2(y)) + res)
 
 
 class _Backbone(nn.Module):
     """The ResNet-34 trunk's used stages, under torchvision's names."""
 
-    def __init__(self):
+    def __init__(self, num_layers: int):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64, eps=1e-5, momentum=0.1)
-        self.layer1 = nn.Sequential(*(BasicBlock(64) for _ in range(3)))
+        cin = 64
+        for stage in range(1, num_layers):
+            ch = _STAGE_CHANNELS[stage - 1]
+            blocks = [BasicBlock(cin if b == 0 else ch, ch,
+                                 1 if stage == 1 or b else 2)
+                      for b in range(_STAGE_BLOCKS[stage - 1])]
+            setattr(self, f"layer{stage}", nn.Sequential(*blocks))
+            cin = ch
 
 
 class SpatialEncoder(nn.Module):
-    """images (V, 3, H, W) -> latent (V, 128, H/4, W/4) in
-    ``torch.channels_last`` memory: a pixel's 128 channels are contiguous,
-    as the patch grid-sample kernels read them (one layout copy per
-    encode, none per sample)."""
+    """images (V, 3, H, W) -> latent (V, 64 * num_layers, H/4, W/4) in
+    ``torch.channels_last`` memory: a pixel's channels are contiguous, as
+    the patch grid-sample kernels read them (one layout copy per encode,
+    none per sample)."""
 
-    LATENT_CHANNELS = 128
-
-    def __init__(self):
+    def __init__(self, num_layers: int = 2):
         super().__init__()
-        self.model = _Backbone()
+        if not 1 <= num_layers <= 5:
+            raise ValueError(f"num_layers {num_layers}: 1 to 5")
+        self.num_layers = num_layers
+        self.latent_channels = [0, 64, 128, 256, 512, 1024][num_layers]
+        self.model = _Backbone(num_layers)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = F.avg_pool2d(images, 2)  # area downsample by 2
         m = self.model
         x = F.relu(m.bn1(m.conv1(x)))
-        return torch.cat([x, m.layer1(x)], dim=1).contiguous(
+        latents = [x]
+        for stage in range(1, self.num_layers):
+            x = getattr(m, f"layer{stage}")(x)
+            latents.append(x)
+        size = latents[0].shape[-2:]
+        latents = [lat if lat.shape[-2:] == size else F.interpolate(
+            lat, size=size, mode="bilinear", align_corners=True)
+            for lat in latents]
+        return torch.cat(latents, dim=1).contiguous(
             memory_format=torch.channels_last)

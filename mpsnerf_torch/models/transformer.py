@@ -6,6 +6,14 @@ V input views of each query point; tokens are (V, N, dim), view-major.
 Module names follow the reference checkpoint
 (``transformer.layers.{i}.{0,1}.fn.{norm,fn}.*``).  Exact erf GELU and
 LayerNorm eps 1e-5.
+
+``dtype`` (bfloat16 or None) is the compute dtype, as in the JAX package:
+the parameters, the LayerNorm statistics and the residual stream stay
+float32; the LayerNorm output, the projections' products and the
+attention core (logits, softmax, value mix) are in ``dtype``.  The JAX
+package writes the softmax out (max, exp, sum, divide in ``dtype``);
+``torch.softmax`` of a bfloat16 tensor accumulates in float32 and rounds
+its output to bfloat16.
 """
 
 from __future__ import annotations
@@ -19,13 +27,18 @@ from mpsnerf_torch.models.layers import TorchLinear
 
 
 class PreNorm(nn.Module):
-    def __init__(self, dim: int, fn: nn.Module):
+    def __init__(self, dim: int, fn: nn.Module,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.norm = nn.LayerNorm(dim, eps=1e-5)
         self.fn = fn
+        self.compute_dtype = dtype
 
     def forward(self, x, **kwargs):
-        return self.fn(self.norm(x), **kwargs)
+        y = self.norm(x)  # statistics in the input's float32
+        if self.compute_dtype is not None:
+            y = y.to(self.compute_dtype)
+        return self.fn(y, **kwargs)
 
 
 class Residual(nn.Module):
@@ -45,18 +58,21 @@ class Residual(nn.Module):
 class Attention(nn.Module):
     """Attention over the (tiny) view axis; input (V, N, D)."""
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 64):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 64,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
         self.scale = dim_head ** -0.5
-        self.to_qkv = TorchLinear(dim, inner * 3, bias=False)
-        self.to_out = nn.Sequential(TorchLinear(inner, dim), nn.Dropout(0.0))
+        self.to_qkv = TorchLinear(dim, inner * 3, bias=False, dtype=dtype)
+        self.to_out = nn.Sequential(TorchLinear(inner, dim, dtype=dtype),
+                                    nn.Dropout(0.0))
 
     def forward(self, x, out_views: Optional[int] = None):
         v_views, n, _ = x.shape
         out_v = out_views or v_views
         h, dh = self.heads, self.dim_head
+        # logits, softmax and the value mix in the compute dtype
         q, k, v = self.to_qkv(x).chunk(3, dim=-1)
         # queries only for the rows that are read; keys and values still
         # mix every view
@@ -70,11 +86,13 @@ class Attention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.net = nn.Sequential(
-            TorchLinear(dim, hidden_dim), nn.GELU(), nn.Dropout(0.0),
-            TorchLinear(hidden_dim, dim), nn.Dropout(0.0),
+            TorchLinear(dim, hidden_dim, dtype=dtype), nn.GELU(),
+            nn.Dropout(0.0), TorchLinear(hidden_dim, dim, dtype=dtype),
+            nn.Dropout(0.0),
         )
 
     def forward(self, x):
@@ -83,14 +101,16 @@ class FeedForward(nn.Module):
 
 class ViewFusionTransformer(nn.Module):
     """Pre-norm residual transformer over the view axis: (V, N, dim);
-    depth 2, 4 heads of 64, feed-forward width 128."""
+    depth 2, 4 heads of 64, feed-forward width 128.  The output is
+    float32 whatever ``dtype``."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.layers = nn.ModuleList([
             nn.ModuleList([
-                Residual(PreNorm(dim, Attention(dim))),
-                Residual(PreNorm(dim, FeedForward(dim, 128))),
+                Residual(PreNorm(dim, Attention(dim, dtype=dtype), dtype)),
+                Residual(PreNorm(dim, FeedForward(dim, 128, dtype=dtype),
+                                 dtype)),
             ])
             for _ in range(2)
         ])

@@ -466,3 +466,32 @@ def index_features_patch(latent: torch.Tensor, uv: torch.Tensor, image_size):
     latent resolution."""
     size = torch.as_tensor(image_size, dtype=uv.dtype, device=uv.device)
     return grid_sample_2d_patch(latent, 2.0 * uv / size - 1.0)
+
+
+def grid_sample_3d(volume: torch.Tensor, coords: torch.Tensor):
+    """Trilinear sampling of ``volume`` (C, D, H, W) at (N, 3) normalized
+    coords in [-1, 1], ordered (x, y, z) = (W, H, D); align_corners, zero
+    outside.  Returns (C, N).  No path calls it (the sparse 3D encoder has
+    its own lookup through the site-id volume); kept for the JAX package's
+    API."""
+    c, d, h, w = volume.shape
+    ix = (coords[..., 0] + 1.0) * 0.5 * (w - 1)
+    iy = (coords[..., 1] + 1.0) * 0.5 * (h - 1)
+    iz = (coords[..., 2] + 1.0) * 0.5 * (d - 1)
+    x0, y0, z0 = torch.floor(ix), torch.floor(iy), torch.floor(iz)
+    flat = volume.reshape(c, d * h * w)
+    out = volume.new_zeros(c, coords.shape[0])
+    for dz in (0.0, 1.0):
+        for dy in (0.0, 1.0):
+            for dx in (0.0, 1.0):
+                xf, yf, zf = x0 + dx, y0 + dy, z0 + dz
+                wgt = ((1.0 - torch.abs(ix - xf)) * (1.0 - torch.abs(iy - yf))
+                       * (1.0 - torch.abs(iz - zf)))
+                inside = ((xf >= 0) & (xf <= w - 1) & (yf >= 0)
+                          & (yf <= h - 1) & (zf >= 0) & (zf <= d - 1))
+                xi = torch.clamp(xf, 0, w - 1).long()
+                yi = torch.clamp(yf, 0, h - 1).long()
+                zi = torch.clamp(zf, 0, d - 1).long()
+                vals = flat[:, (zi * h + yi) * w + xi]  # (C, N)
+                out = out + vals * (wgt * inside.to(wgt.dtype))[None, :]
+    return out

@@ -11,7 +11,7 @@ reads the same values.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -125,10 +125,16 @@ def deform_canonical_to_source(
     query_pts: torch.Tensor,   # (N, 3) canonical big-pose points
     vert_ids: torch.Tensor,    # (N,) nearest canonical vertex
     mean_shape: bool = True,
+    weights_correction: Optional[torch.Tensor] = None,  # (N, 24)
 ):
     """Forward-LBS warp: canonical big pose -> source pose -> world.
-    Returns ``(smpl_src_pts, world_src_pts, bweights)``."""
+    ``weights_correction`` (the skinning field's output) moves the blend
+    weights to ``bw + 0.2 * corr``, renormalised to sum 1.  Returns
+    ``(smpl_src_pts, world_src_pts, bweights)``."""
     bweights = smpl.weights[vert_ids]
+    if weights_correction is not None:
+        bweights = bweights + 0.2 * weights_correction
+        bweights = bweights / torch.sum(bweights, dim=-1, keepdim=True)
     A_b = _blend_A(bweights, tf.A_big)
     pts = _apply(inv3x3(A_b[:, :3, :3]), query_pts - A_b[:, :3, 3])
     if mean_shape:

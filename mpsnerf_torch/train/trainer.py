@@ -1,10 +1,8 @@
 """Training: the per-view optimization step and the host loop (port of
-``mpsnerf_tpu/train/trainer.py`` for the flagship configuration: the acc
-loss as an option, on by default; the hierarchical pass, occupancy
-compositing and a white background as options).  The correction,
-consistency and density losses and pair training need model parts that
-are not ported (``ROADMAP.md`` item 6): :class:`TrainConfig` raises
-``NotImplementedError`` for them.
+``mpsnerf_tpu/train/trainer.py``: the acc, correction, consistency and
+density losses as options; the hierarchical pass, occupancy compositing
+and a white background as options; pair training, whose image term counts
+only where the source and target poses match).
 
 One optimizer step per output view of a loader item; the step counter
 counts view-steps and sets the learning rate ``lrate * 0.5^(step /
@@ -14,6 +12,12 @@ restored checkpoint resumes at the decayed rate.  Every
 repeated at points jittered by ``0.01 * N(0, 1)`` and the two occupancy
 normals are compared, which differentiates the normal (a gradient) once
 more.
+
+In train mode every BatchNorm moves its running statistics on each call:
+the 2D encoder's once a step, the sparse 3D encoder's (the correction
+field) once a query for the aggregate style and twice for the instance
+style, in the JAX package's order (the coarse pass, the query, the smooth
+loss's perturbed query).
 
 Randomness is explicit: the stratified jitter ``u``, the importance draws
 ``u_imp`` and the smooth delta are drawn from the trainer's
@@ -56,21 +60,6 @@ class TrainConfig:
     smooth_loss: bool = True
     smooth_interval: int = 4
     pair_mode: bool = False  # H36M_P/THuman_P: the pose-gated image loss
-
-    def __post_init__(self):
-        wanted = (
-            ("correction_loss", self.correction_loss, "the correction field"),
-            ("consistency_loss", self.consistency_loss,
-             "the correction field's source-pose points"),
-            ("density_loss", self.density_loss,
-             "the correction field's losses"),
-            ("pair_mode", self.pair_mode,
-             "pair training (the pair model and its datasets)"),
-        )
-        missing = [f"{name} needs {part}" for name, on, part in wanted if on]
-        if missing:
-            raise NotImplementedError(
-                "; ".join(missing) + ": not ported (ROADMAP.md item 6)")
 
 
 def lr_at_step(cfg: TrainConfig, step: int) -> float:
@@ -128,12 +117,16 @@ def make_loss_fn(model: MPSNeRF, cfg: TrainConfig, smooth: bool):
                              raw.sigma.reshape(r, n_s), z_vals, rays_d,
                              occupancy=cfg.occupancy,
                              white_bkgd=cfg.white_bkgd)
+        pose_match = None
+        if cfg.pair_mode:
+            pose_match = (sp_input["pose_index"].reshape(())
+                          == tp_input["pose_index"].reshape(()))
         terms = compute_losses(
             out.rgb_map, out.acc_map, target_rgb, bkgd_msk, raw,
             raw_perturbed, use_acc_loss=cfg.acc_loss,
             use_correction_loss=cfg.correction_loss,
             use_consistency_loss=cfg.consistency_loss,
-            use_density_loss=cfg.density_loss)
+            use_density_loss=cfg.density_loss, pose_match=pose_match)
         return terms.total, (terms, out.rgb_map)
 
     return loss_fn
@@ -240,7 +233,9 @@ class Trainer:
 
     def train_item(self, smpl: SMPLModel, sp_input, tp_input) -> Dict:
         """One loader item: a view-step per output view (``tp_input``
-        carries the item's ray stacks).  Returns averaged scalars."""
+        carries the item's ray stacks; a pair item's source and target
+        differ, any other passes the same item twice).  Returns averaged
+        scalars."""
         n_views = int(tp_input["rgb_all"].shape[0])
         self.last_logs = [self.view_step(smpl, sp_input, tp_input, k)
                           for k in range(n_views)]

@@ -3,6 +3,7 @@
 step for step the JAX package's ``run_nerf_batch.py``.
 
     python run_nerf_batch_torch.py --config configs/canonical_transformer.txt --batch_size 1
+    python run_nerf_batch_torch.py --config configs/h36m.txt --batch_size 1
     python run_nerf_batch_torch.py --config configs/synthetic_smoke.txt --device cpu
     python run_nerf_batch_torch.py --config ... --save_weights 0   # eval only
 
@@ -17,10 +18,15 @@ the view-step counter crosses a multiple of ``i_weights``, scalars at
 ``<basedir>/<expname>/testset_<step>``.  ``MPSNERF_PROFILE_DIR`` writes a
 ``torch.profiler`` trace of the second item there.
 
+Every model string of ``mpsnerf_torch/factory.py`` and every model flag
+trains.  A pair data set (``H36M_P``, ``THuman_P``) gives each item as a
+source and a target; the target's rays drive the step and its image term
+counts only where the two poses match.  With a correction field each
+item gets its sparse-conv plan.
+
 ``--device`` (default ``cuda``) picks the device; there is no fallback to
 the CPU.  One item at a time on one device: ``--batch_size`` > 1 and
-``--mesh_devices`` raise, as do the model options, losses and pair data
-sets the port does not have yet.
+``--mesh_devices`` raise; the ``correction_by_*`` models raise.
 """
 
 from __future__ import annotations
@@ -88,7 +94,7 @@ def main(argv=None):
     basedir, expname = args.basedir, args.expname or "exp"
     dump_args(args, basedir, expname)
 
-    from mpsnerf_torch.data import to_device_input
+    from mpsnerf_torch.data import attach_spconv_plan, to_device_input
     from mpsnerf_torch.data.prefetch import PrefetchLoader
     from mpsnerf_torch.factory import (
         PAIR_DATA_SETS, return_dataset, return_model,
@@ -100,6 +106,7 @@ def main(argv=None):
 
     torch.manual_seed(args.seed)
     model = return_model(args)
+    pair_mode = args.data_set_type in PAIR_DATA_SETS
     cfg = TrainConfig(
         lrate=args.lrate,
         decay_steps=args.decay_steps,
@@ -115,7 +122,7 @@ def main(argv=None):
         density_loss=bool(args.density_loss),
         smooth_loss=bool(args.smooth_loss),
         smooth_interval=args.smooth_interval,
-        pair_mode=args.data_set_type in PAIR_DATA_SETS,
+        pair_mode=pair_mode,
     )
     dataset = return_dataset(args)
     smpl_models = load_smpl_models(device=device)
@@ -176,15 +183,30 @@ def main(argv=None):
     primary = (not torch.distributed.is_initialized()
                or torch.distributed.get_rank() == 0)
 
+    def prepare(item):
+        """A loader item -> (rig, source, target) on the device."""
+        if pair_mode:
+            sp_item, tp_item = item["sp_input"], item["tp_input"]
+        else:
+            sp_item = tp_item = item
+        if model.correction_field:
+            attach_spconv_plan(tp_item)
+            if sp_item is not tp_item:
+                # the instance style's backward correction reads the
+                # source pose's voxel grid
+                attach_spconv_plan(sp_item)
+        smpl = smpl_models[int(sp_item["gender"])]
+        tp = to_device_input(tp_item, device, rays=True)
+        sp = tp if sp_item is tp_item else to_device_input(sp_item, device)
+        return smpl, sp, tp
+
     while trainer.global_step < n_iters:
         # profile the second item (after the first one's lazy set-up)
         do_trace = profile_dir and len(run.logs) == 1
         with _profile(profile_dir if do_trace else None,
                       trainer.global_step, device):
-            item = next(loader)
-            smpl = smpl_models[int(item["gender"])]
-            inp = to_device_input(item, device, rays=True)
-            logs = trainer.train_item(smpl, inp, inp)
+            smpl, sp, tp = prepare(next(loader))
+            logs = trainer.train_item(smpl, sp, tp)
         running.append(logs)
         run.logs.append(logs)
         gs = trainer.global_step

@@ -49,6 +49,7 @@ import run_nerf_batch_torch as cli
 from tests.test_h36m_loader import h36m_root  # noqa: F401 (fixture)
 from tests.test_torch_port_io import _distort
 from tests.thuman_fixture import build_thuman_subject
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HW = 48
 N_VERTS = 120
@@ -266,12 +267,12 @@ def test_cli_acc_loss_switches(tmp_path, monkeypatch, flags, n_importance):
     assert run.logs[0]["acc_loss"] == 0.0
 
 
-def _write_smpl_assets(assets):
+def _write_smpl_assets(assets, n_verts=N_VERTS):
     """The fixture's rigs (its vertex count) as SMPL pickles in
     ``assets/``, which ``load_smpl_models`` reads by gender."""
     os.makedirs(assets, exist_ok=True)
     for gender, fname in ASSET_FILES.items():
-        rig = synthetic_smpl(n_verts=N_VERTS, seed=gender, device="cpu")
+        rig = synthetic_smpl(n_verts=n_verts, seed=gender, device="cpu")
         parents = np.asarray(rig.parents)
         with open(os.path.join(assets, fname), "wb") as f:
             pickle.dump({
@@ -315,25 +316,13 @@ def test_cli_thuman_trains(tree, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra,part", [
     (("--batch_size", 2), "batched and sharded trainers"),
-    (("--batch_size", 1, "--data_set_type", "THuman_P"), "pair training"),
-    (("--batch_size", 1, "--data_set_type", "H36M_P"), "pair training"),
-    (("--batch_size", 1, "--correction_loss", 1),
-     "correction_loss needs the correction field"),
+    (("--batch_size", 1, "--model", "correction_by_f3d"), "item 6"),
+    (("--batch_size", 1, "--model", "correction_by_uvh_agg"), "item 6"),
+    (("--batch_size", 1, "--model", "nope"), "not available"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, extra, part):
     with pytest.raises(NotImplementedError, match=part):
         _main(monkeypatch, tmp_path, "canonical_transformer", *extra)
-
-
-@pytest.mark.parametrize("field", ["correction_loss", "consistency_loss",
-                                   "density_loss", "pair_mode"])
-def test_train_config_refuses_losses_without_their_model(field):
-    """The losses and pair training whose model parts are not ported raise
-    instead of training without them."""
-    from mpsnerf_torch.train.trainer import TrainConfig
-
-    with pytest.raises(NotImplementedError, match=f"{field} needs"):
-        TrainConfig(**{field: True})
 
 
 def test_profile_scope_writes_a_trace(tmp_path):

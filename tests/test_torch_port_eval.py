@@ -48,6 +48,7 @@ from mpsnerf_torch.models.mps_nerf import MPSNeRF as TMPSNeRF
 from mpsnerf_torch.ops import composite as t_composite
 from mpsnerf_torch.renderer import render as t_render
 from mpsnerf_torch.smpl.model import synthetic_smpl
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_SAMPLES = 8
 N_IMP = 4

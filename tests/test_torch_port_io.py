@@ -45,6 +45,7 @@ from mpsnerf_torch.train.metrics import MetricWriter as TMetricWriter
 
 from tests.test_h36m_loader import h36m_root  # noqa: F401 (fixture)
 from tests.thuman_fixture import build_thuman_subject
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ITEM_ATOL = 1e-6
 TOLERANCED = {"img_all", "o_img_all", "msk_all", "rgb_all"}
@@ -397,17 +398,33 @@ def test_return_model_widths_and_state_dict_names():
     assert shape_tree(stats) == shape_tree(dict(shapes["batch_stats"]))
 
 
-@pytest.mark.parametrize("over,part", [
-    (dict(model="coarse_batch"), "model 'coarse_batch'"),
-    (dict(correction_field=1), "correction_field"),
-    (dict(with_viewdirs=1), "with_viewdirs"),
-    (dict(compute_dtype="bfloat16"), "compute_dtype"),
-    (dict(data_set_type="THuman_P"), "pair training"),
+@pytest.mark.parametrize("over", [
+    dict(model="coarse_batch"),
+    dict(correction_field=1),
+    dict(with_viewdirs=1),
+    dict(compute_dtype="bfloat16"),
+    dict(data_set_type="THuman_P"),
 ])
-def test_return_model_raises_for_what_is_not_ported(over, part):
-    with pytest.raises(NotImplementedError, match=part) as e:
-        t_factory.return_model(_args("canonical_transformer", **over))
-    assert "ROADMAP.md item 6" in str(e.value)
+def test_return_model_builds_what_jax_builds(over):
+    """The model options that used to raise build, with JAX's
+    ``return_model``'s field values, and ``convert_reference_state_dict``
+    takes the state dict whole (less ``num_batches_tracked``, which it
+    marks used)."""
+    from mpsnerf_tpu.compat.torch_import import convert_reference_state_dict
+
+    args = _args("canonical_transformer", **over)
+    t_model = t_factory.return_model(args)
+    j_model = j_factory.return_model(args)
+    for f in ("use_transformer", "append_rgb", "with_viewdirs",
+              "human_sample", "mean_shape", "correction_field",
+              "skinning_field", "correction_style", "pe_condition",
+              "compute_dtype", "pair_mode", "blend_rgb", "compact_fraction"):
+        assert getattr(t_model, f) == getattr(j_model, f), f
+    sd = {k: v.numpy() for k, v in t_model.state_dict().items()}
+    _, _, report = convert_reference_state_dict(sd)
+    assert report["skipped"] == []
+    assert t_model.views_linear.in_features == 256 + 155 + (
+        27 if over.get("with_viewdirs") else 0)
 
 
 def test_metric_writer_records_match_jax(tmp_path, monkeypatch):

@@ -35,6 +35,7 @@ from mpsnerf_torch.models.mps_nerf import MPSNeRF as TMPSNeRF
 from mpsnerf_torch.models.resnet import SpatialEncoder as TSpatialEncoder
 from mpsnerf_torch.models.transformer import ViewFusionTransformer as TTransformer
 from mpsnerf_torch.smpl.model import SMPLModel, synthetic_smpl as t_synthetic_smpl
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _np_tree(tree):

@@ -36,6 +36,7 @@ from mpsnerf_torch.ops import positional as t_positional
 from mpsnerf_torch.smpl import lbs as t_lbs
 from mpsnerf_torch.smpl import mesh as t_mesh
 from mpsnerf_torch.smpl.model import synthetic_smpl as t_synthetic_smpl
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -22,6 +22,7 @@ from mpsnerf_torch.eval.runner import ViewRenderer as TViewRenderer, view_rays
 from mpsnerf_torch.models.mps_nerf import MPSNeRF as TMPSNeRF
 from mpsnerf_torch.renderer import render as t_render
 from mpsnerf_torch.smpl.model import synthetic_smpl
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_SAMPLES = 16
 TILE = 2048

@@ -36,6 +36,7 @@ from mpsnerf_torch.smpl.model import synthetic_smpl
 from mpsnerf_torch.train import checkpoint as t_ckpt
 from mpsnerf_torch.train import losses as t_losses
 from mpsnerf_torch.train import trainer as t_trainer
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_SAMPLES = 8
 N_RAYS = 32
