@@ -130,18 +130,49 @@ non-zero):
      the latent and the RGB, the double backward of a smooth step with a
      deform field; K2's backward timed at the plain step's latent and RGB
      inputs beside autograd of ``F.grid_sample``;
+  11. the numpy-era models and the legacy eval at full width: (a) one
+     plain and one smooth ``Trainer.view_step`` on phase 5's 512^2 scene
+     (the canonical sparse-conv plans attached) for each of
+     ``correction_by_f3d``, ``correction_by_f3d_fagg`` (``--use_f2d 1``),
+     ``correction_by_uvh_agg`` and ``correction_by_uvh_agg_fagg`` through
+     ``factory.return_model`` on the flagship config, the trainer at step
+     3: times by CUDA events, launches, finite terms, nothing dropped,
+     both correction fields moved, the smooth step's Jacobian terms
+     non-zero (``CorrectionF3D``; zero for ``CorrectionUvhAgg``, which
+     has none); (b) one served view of ``correction_by_f3d_fagg`` at
+     256^2 through ``ViewRenderer`` on the chunked path: ms to the image,
+     the idle share, finite pixels, the acc > 0.5 share; (c)
+     ``run_nerf_batch_torch.main`` with ``--model correction_by_f3d_fagg
+     --use_f2d 1 --data_set_type THuman_B_R`` on phase 9's THuman-layout
+     fixture (15 pose entries): one item trained (24 view-steps, the
+     canonical plans attached by the CLI, a checkpoint), then
+     ``--save_weights 0 --image_scaling 0.5``, which reloads it:
+     ``run_legacy_test``'s PSNR file, PNGs and both AVIs, each AVI's RIFF
+     header and index parsed for its frame count and size (its first MJPG
+     frame decoded by PIL), seconds per image; (d) phase 2's comparisons
+     on what the kernels were given by ``correction_by_f3d_fagg``'s plain
+     steps in (a) and in (c)'s training, and by the first chunk of (b)'s
+     view and of (c)'s first eval view (524,288 and 1,536,000 points, the
+     window samples on a (3,128,64,64) latent): K1 on the query's three
+     calls, K2's forward on the 25 shifted window coordinates (some
+     beyond the border) and the refined source points, and on the steps
+     K2's backward with the coordinate gradient there and each window
+     sample's backward;
   then one ``{"kernels": [...]}`` line: each kernel's record from phase 7
      with its launches on each path (``launches``: phase 5;
      ``launches_serving``: phase 4; ``launches_eval``,
      ``launches_hier_plain``, ``launches_hier_smooth``: phase 8;
      ``launches_cli``, ``launches_cli_eval``: phase 9;
      ``launches_variants``, ``launches_variant_views``,
-     ``launches_h36m_cli``, ``launches_h36m_eval``: phase 10), and K2's
-     backward record ``variant_plain_step`` (phase 10 (d)'s times);
-  11. the device line, last.
+     ``launches_h36m_cli``, ``launches_h36m_eval``: phase 10;
+     ``launches_legacy``, ``launches_legacy_view``,
+     ``launches_legacy_cli``, ``launches_legacy_eval``: phase 11), and
+     K2's backward record
+     ``variant_plain_step`` (phase 10 (d)'s times);
+  12. the device line, last.
 
 Launch counts are set to 0 just before each path (phases 4, 5, 6, 8, 9,
-10)
+10, 11)
 and read just after; launches made to compare or time a kernel do not
 count.
 ``--stop-after N`` ends the run after phase N (a short check of a new
@@ -2862,6 +2893,455 @@ def streamed_table(verts, seed):
     return torch.cat([verts] + more)[:STREAMED_VERTS].contiguous()
 
 
+# ---- phase 11: the legacy family and the legacy eval ----------------------
+
+# (--model, flag overrides): the numpy-era models of phase 11
+LEGACY = (("correction_by_f3d", {}),
+          ("correction_by_f3d_fagg", {"use_f2d": 1}),
+          ("correction_by_uvh_agg", {}),
+          ("correction_by_uvh_agg_fagg", {}))
+LEGACY_CAPTURE = "correction_by_f3d_fagg"
+
+
+def train_legacy(dev, size=512, n_verts=6890, n_rays=1000, n_samples=128):
+    """Phase 11 (a): one plain and one smooth ``Trainer.view_step`` of each
+    numpy-era model through ``factory.return_model`` on the flagship
+    config, on phase 5's 512^2 scene (the posed and the canonical
+    sparse-conv plans attached); the trainer at step 3, so that the
+    zero-init output layers move in the plain step and the smooth step's
+    Jacobian norms are non-zero; an untimed plain and smooth step of the
+    first model before.  K1/K2 inputs captured on
+    ``correction_by_f3d_fagg``'s plain step.  The sizes shrink it for a
+    rehearsal on the CPU."""
+    import math
+
+    import torch
+
+    from mpsnerf_torch.data import attach_spconv_plan, to_device_input
+    from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
+    from mpsnerf_torch.train.trainer import TrainConfig, Trainer
+    from mpsnerf_torch.tools.profile_step import variant_model
+
+    ds = SyntheticHumanDataset(n_poses=1, n_cameras=4, image_size=size,
+                               n_verts=n_verts, split="train", n_rays=n_rays)
+    smpl = ds.smpl_for(0, device=dev)
+    item = to_device_input(attach_spconv_plan(
+        ds.get_item(0, instance_idx=0), canonical=True), dev, rays=True)
+    # an untimed plain and smooth step first (the products' and the
+    # Jacobians' double backward's first calls pick and load their kernels)
+    warm = Trainer(variant_model(LEGACY[0][0], LEGACY[0][1], dev)[0],
+                   TrainConfig(n_samples=n_samples), device=dev,
+                   start_step=3)
+    for _ in range(2):
+        warm.view_step(smpl, item, item, 0)
+    del warm
+    reset_counts()
+    spy, results = kernel_spy(), {}
+    with spy:
+        for name, over in LEGACY:
+            model, _ = variant_model(name, over, dev)
+            trainer = Trainer(model, TrainConfig(n_samples=n_samples),
+                              device=dev, start_step=3, seed=0)
+            fields = {n: p.detach().clone()
+                      for n, p in model.named_parameters()
+                      if n.split(".")[0] in ("forward_deform",
+                                             "backward_deform")}
+            recs = []
+            for _ in range(2):
+                smooth = trainer.smooth_now()
+                spy.stage = ("(a) plain" if name == LEGACY_CAPTURE
+                             and not smooth else None)
+                counts0 = read_counts()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                terms, _ = trainer.view_step(smpl, item, item,
+                                             trainer.step % 4)
+                end.record()
+                torch.cuda.synchronize()
+                counts1 = read_counts()
+                recs.append({"smooth": smooth, "ms": start.elapsed_time(end),
+                             "terms": terms,
+                             "launches": {k: counts1[k] - counts0[k]
+                                          for k in KERNEL_NAMES}})
+            spy.stage = None
+            moved = {o: any(bool((p.detach() != fields[n]).any())
+                            for n, p in model.named_parameters()
+                            if n in fields and n.startswith(o))
+                     for o in ("forward_deform", "backward_deform")}
+            finite = all(math.isfinite(float(x)) for r in recs
+                         for x in r["terms"])
+            dropped = max(float(r["terms"].n_dropped) for r in recs)
+            smooth_t = recs[1]["terms"]
+            jac = (float(smooth_t.normal_smooth), float(smooth_t.smpl_normal))
+            # CorrectionF3D's smooth loss compares Jacobian norms; the
+            # CorrectionUvhAgg has none (zeros in its slots)
+            jac_ok = (min(jac) > 0 if name.startswith("correction_by_f3d")
+                      else max(jac) == 0)
+            k2_ok = all(r["launches"]["grid_sample_patch_fwd"] > 0
+                        and r["launches"]["nearest_vertex"] >= 2
+                        for r in recs)
+            ok = (finite and dropped == 0 and all(moved.values())
+                  and [r["smooth"] for r in recs] == [False, True]
+                  and jac_ok and k2_ok)
+            results[name] = recs
+            log(f"[11] {name} {json.dumps(over)}: plain {recs[0]['ms']:.1f} "
+                f"ms, smooth {recs[1]['ms']:.1f} ms (CUDA events); loss "
+                f"{float(recs[0]['terms'].total):.5f} / "
+                f"{float(smooth_t.total):.5f}; smooth-step Jacobian terms "
+                f"(normal_smooth, smpl_normal) {jac[0]:.3g}, {jac[1]:.3g}; "
+                f"fields moved {moved}; n_dropped {dropped:g}; launches "
+                f"plain {json.dumps(recs[0]['launches'])}, smooth "
+                f"{json.dumps(recs[1]['launches'])}: "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(1)
+            del trainer, model
+            if torch.device(dev).type == "cuda":
+                torch.cuda.empty_cache()
+    return read_counts(), results, spy.calls
+
+
+class first_chunk:
+    """Sets ``spy.stage`` to ``stage`` for the first chunk that any
+    ``ViewRenderer`` renders on its chunked path inside the block, and back
+    to None after it."""
+
+    def __init__(self, spy, stage):
+        self.spy, self.stage = spy, stage
+
+    def __enter__(self):
+        from mpsnerf_torch.eval.runner import ViewRenderer
+
+        self.orig, done = ViewRenderer._chunk, []
+
+        def chunk(renderer, *a, **k):
+            if done:
+                return self.orig(renderer, *a, **k)
+            done.append(True)
+            self.spy.stage = self.stage
+            try:
+                return self.orig(renderer, *a, **k)
+            finally:
+                self.spy.stage = None
+
+        ViewRenderer._chunk = chunk
+        return self
+
+    def __exit__(self, *exc):
+        from mpsnerf_torch.eval.runner import ViewRenderer
+
+        ViewRenderer._chunk = self.orig
+
+
+def legacy_view(dev, size=256, n_verts=6890, n_samples=128):
+    """Phase 11 (b): one served view of ``correction_by_f3d_fagg`` at
+    ``size``^2 through ``ViewRenderer``, which must take the chunked path
+    (every sample runs the network): ms to the image on the device (CUDA
+    events around ``render_view_async``, which completes the chunked
+    path, fetch included) and the idle share (profiled kernels' summed
+    time against the unprofiled view).  Returns its launches, its times
+    and the kernels' inputs in the first chunk of its warm-up render."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
+    from mpsnerf_torch.eval.runner import ViewRenderer
+    from mpsnerf_torch.tools.profile_step import device_rows, variant_model
+
+    ds = SyntheticHumanDataset(n_poses=1, n_cameras=6, input_views=[0, 2, 4],
+                               image_size=size, n_verts=n_verts)
+    item = ds.get_item(0, instance_idx=0)
+    smpl = ds.smpl_for(0, device=dev)
+    model, _ = variant_model(LEGACY_CAPTURE, dict(LEGACY)[LEGACY_CAPTURE],
+                             dev)
+    r = ViewRenderer(model, lambda g: smpl, n_samples=n_samples, device=dev)
+    # the profiled render is the warm-up (the latent, the plans); the
+    # kernels' inputs in its first chunk are kept for phase 11 (d) (their
+    # copies, ~0.5 GB, add a fraction of a ms to its busy time)
+    spy = kernel_spy()
+    with uncounted(), spy, first_chunk(spy, "(b) view 1, chunk 0,"), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r.render_view(item, item, 1)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in device_rows(prof)) / 1e3
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    pending = r.render_view_async(item, item, 1)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    launches = read_counts()
+    rgb = r.finish_view(pending)
+    stats = r.last_view
+    opaque = float((stats.acc > 0.5).mean())
+    ok = (not r.global_compact and not r.box_cull
+          and stats.hit_rays == size * size and np.isfinite(rgb).all()
+          and rgb.shape == (size * size, 3) and stats.n_dropped == 0
+          and opaque > 0.01 and launches["nearest_vertex"] > 0
+          and launches["grid_sample_patch_fwd"] > 0)
+    log(f"[11] {LEGACY_CAPTURE} view 1 at {size}^2: {ms:.1f} ms to the "
+        f"image (CUDA events), kernels busy {busy:.1f} ms (idle "
+        f"{100 * (1 - busy / ms):.1f} %), chunked path {not r.global_compact}"
+        f" (box cull {r.box_cull}), {stats.hit_rays} rays x {n_samples} "
+        f"samples run, acc>0.5 on {100 * opaque:.1f} %, finite "
+        f"{bool(np.isfinite(rgb).all())}; launches {json.dumps(launches)}: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(1)
+    del r, model
+    torch.cuda.empty_cache()
+    return (launches, {"ms": ms, "busy_ms": busy, "idle": 1 - busy / ms},
+            spy.calls)
+
+
+def avi_check(path, want_frames, want_w, want_h):
+    """The RIFF header and ``idx1`` index of a written AVI: codec, frame
+    count, frame size; the first MJPG frame decoded by PIL."""
+    import io
+
+    from mpsnerf_torch.eval.video import MJPG, read_avi_index
+
+    codec, w, h, n, sizes = read_avi_index(path)
+    ok = (w, h, n, len(sizes)) == (want_w, want_h, want_frames, want_frames)
+    decoded = None
+    if codec == MJPG:
+        with open(path, "rb") as f:
+            data = f.read()
+        at = data.index(b"00dc") + 8
+        from PIL import Image
+
+        decoded = Image.open(io.BytesIO(data[at:at + sizes[0]])).size
+        ok &= decoded == (want_w, want_h)
+    return ok, (f"{codec!r} {w}x{h}, {n} frames in the header, {len(sizes)} "
+                f"in the index, first frame decoded {decoded}")
+
+
+def legacy_cli_on_the_card(dev, size=512, scaling=0.5, n_verts=6890,
+                           overrides=()):
+    """Phase 11 (c): ``run_nerf_batch_torch.main`` with ``--model
+    correction_by_f3d_fagg --use_f2d 1 --data_set_type THuman_B_R`` on
+    phase 9's THuman-layout fixture (written again, with the legacy
+    window's poses 13 and 14).  First one item trained, loaded in the loop
+    (24 view-steps; the CLI attaches the posed and the canonical
+    sparse-conv plans; a checkpoint at step 24); then ``--save_weights 0
+    --image_scaling`` ``scaling``, which reloads that checkpoint and runs
+    the legacy test of its 2 items at ``size * scaling``^2, views 0 and 12:
+    the PSNR file, the side-by-side and per-frame PNGs and both AVIs, each
+    AVI's header and index parsed for its frame count and size.  Returns
+    the launches of both runs (``legacy_cli``, ``legacy_eval``), the
+    eval's seconds per image, and the kernels' inputs in the training's
+    first plain view-step and in the first chunk of the eval's first
+    view.  ``size``, ``scaling`` and ``overrides`` (more CLI flags) shrink
+    it for a rehearsal on the CPU."""
+    import math
+    import os
+    import pathlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import run_nerf_batch_torch
+    from mpsnerf_torch.train.trainer import Trainer
+
+    on_card = torch.device(dev).type == "cuda"
+    config = pathlib.Path(__file__).resolve().parent / "configs"
+    cwd = os.getcwd()
+    hw = int(size * scaling)
+    spy, launches = kernel_spy(), {}
+    with tempfile.TemporaryDirectory(prefix="mpsnerf_legacy_") as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "thuman", "fixture_legacy_F")
+        # 15 pose entries: the legacy window reads poses 13 and 14
+        write_thuman_subject(root, size, 2, {p: int(p == 14)
+                                             for p in range(15)}, n_verts)
+        log(f"[11] THuman-layout fixture for the legacy CLI: {size}^2 x 2 "
+            f"frames, 15 pose entries; written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        base = os.path.join(tmp, "logs")
+        argv = ["--config", str(config / "canonical_transformer.txt"),
+                "--model", LEGACY_CAPTURE, "--use_f2d", "1",
+                "--data_root", root, "--data_set_type", "THuman_B_R",
+                "--multi_person", "0", "--batch_size", "1", "--basedir",
+                base, "--device", str(dev), *overrides]
+        orig_step = Trainer.view_step
+
+        def spy_step(trainer, *a, **k):
+            # the kernels' inputs in the first plain view-step
+            if not spy.calls and not trainer.smooth_now():
+                spy.stage = "(c) CLI plain"
+            try:
+                return orig_step(trainer, *a, **k)
+            finally:
+                spy.stage = None
+
+        try:
+            os.chdir(tmp)
+            Trainer.view_step = spy_step
+            with spy:
+                reset_counts()
+                t0 = time.perf_counter()
+                with step_timer(on_card) as timer:
+                    trained = run_nerf_batch_torch.main(argv + [
+                        "--N_iteration", "23", "--i_weights", "24",
+                        "--i_print", "24", "--i_testset", "1000000",
+                        "--num_worker", "0"])
+                train_s = time.perf_counter() - t0
+                launches["legacy_cli"] = read_counts()
+                Trainer.view_step = orig_step
+                n_train_calls = len(spy.calls)
+                reset_counts()
+                t0 = time.perf_counter()
+                with first_chunk(spy, "(c) eval view 0, chunk 0,"):
+                    run = run_nerf_batch_torch.main(argv + [
+                        "--save_weights", "0", "--image_scaling",
+                        str(scaling)])
+                if on_card:
+                    torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches["legacy_eval"] = read_counts()
+        finally:
+            Trainer.view_step = orig_step
+            os.chdir(cwd)
+        model = trained.trainer.model
+        moved = {f: float(getattr(model, f).output_linear.weight.detach()
+                          .abs().max()) > 0
+                 for f in ("forward_deform", "backward_deform")}
+        recs = timer.records
+        finite = all(math.isfinite(float(x)) for r in recs
+                     for x in r["terms"])
+        dropped = max(float(r["terms"].n_dropped) for r in recs)
+        means = []
+        for kind in (False, True):
+            ms = [r["ms"] for r in recs if r["smooth"] == kind][1:]
+            means.append(sum(ms) / max(1, len(ms)))
+        ok = (trained.trainer.global_step == 24 and len(recs) == 24
+              and finite and dropped == 0 and all(moved.values())
+              and type(model).__name__ == "CorrectionF3D"
+              and launches["legacy_cli"]["nearest_vertex"] > 0
+              and launches["legacy_cli"]["grid_sample_patch_bwd"] > 0)
+        log(f"[11] legacy CLI training ({LEGACY_CAPTURE}, THuman_B_R, "
+            f"{size}^2): 1 item, {len(recs)} view-steps in {train_s:.1f} s "
+            f"(the load, the plans and the checkpoint included); plain "
+            f"{means[0]:.1f} ms, smooth {means[1]:.1f} ms mean by "
+            f"{'CUDA events' if on_card else 'wall'} (each kind's first "
+            f"left out); finite {finite}, n_dropped {dropped:g}, output "
+            f"layers moved {moved}; launches "
+            f"{json.dumps(launches['legacy_cli'])}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(1)
+        out = os.path.join(base, run.args.expname)
+        [testset] = [d for d in os.listdir(out)
+                     if d.startswith("testset_") and "more_real" in d]
+        d = os.path.join(out, testset)
+        names = sorted(os.listdir(d))
+        n_img = 4  # 2 items x views 0 and 12
+        psnr = [f for f in names if f.startswith("psnr_")]
+        want = {f"00_0{t}_{k:02d}.png" for t in (0, 1) for k in (0, 12)} | {
+            f"frame00{13 + t}_view00{k:02d}{gt}.png" for t in (0, 1)
+            for k in (0, 12) for gt in ("", "_gt")}
+        strip_h = int(hw * 2 * hw / (3 * hw))
+        checks = [avi_check(os.path.join(d, f"{v}.avi"), 2, 2 * hw,
+                            strip_h + hw) for v in ("novel_pose",
+                                                    "novel_view")]
+        value = float(np.load(os.path.join(d, psnr[0]))) if psnr else None
+        ev = launches["legacy_eval"]
+        ok = (len(psnr) == 1 and np.isfinite(value) and want <= set(names)
+              and all(c[0] for c in checks) and run.start_step == 24
+              and type(run.trainer.model).__name__ == "CorrectionF3D"
+              and ev["nearest_vertex"] > 0 and ev["grid_sample_patch_fwd"] > 0
+              and (len(spy.calls) > n_train_calls or not on_card))
+        log(f"[11] legacy eval (THuman_B_R, run_legacy_test, {run.args.model}"
+            f" reloaded at step {run.start_step}) at {hw}^2: {secs:.1f} s "
+            f"for {n_img} images ({secs / n_img:.2f} s per image: 2 items "
+            f"loaded at {size}^2 x 24 views, renders, PNGs, videos); PSNR "
+            f"{value}; {len(names)} files; novel_pose.avi {checks[0][1]}; "
+            f"novel_view.avi {checks[1][1]}; launches {json.dumps(ev)}: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(1)
+    return launches, secs / n_img, spy.calls
+
+
+def compare_legacy_inputs(calls):
+    """Phase 11 (d), phase 2's comparisons on what ``correction_by_f3d_fagg``
+    gave the kernels, one query's calls for each stage of ``calls``: a
+    plain train step (phase 11 (a), the CLI's) or the first chunk of a
+    served view (no backward).  K1's ids and d2 on the query's three calls
+    (the posed mask, the coarse canonical points, the canonical points);
+    K2's forward on the 25 shifted window coordinates (some beyond the
+    border on a step) and on the refined source points; on a step, K2's
+    backward with the coordinate gradient at the refined source points
+    (and each window sample's image-only backward at its flags).  Returns
+    the worst errors, K2's keyed by (kernel, "latent")."""
+    err, ok_all = {"nearest_vertex": 0.0}, True
+    stages = list(dict.fromkeys(stage for stage, _, _ in calls))
+    for stage in stages:
+        step = "plain" in stage
+        tag = f"{stage} step," if step else stage
+        n_knn = n_fwd = n_bwd = coord_bwd = 0
+        outside, shapes = [], set()
+        for _, name, args in (c for c in calls if c[0] == stage):
+            if name == "nearest_vertex_cuda":
+                n_knn += 1
+                label = ("the posed 5 cm mask", "the coarse canonical points",
+                         "the canonical points")[min(n_knn, 3) - 1]
+                e, _ = compare_knn(f"{tag} {label}", args[0], args[1],
+                                   args[2])
+                err["nearest_vertex"] = max(err["nearest_vertex"], e)
+            elif name == "grid_sample_patch_fwd_cuda":
+                n_fwd += 1
+                image, coords = args
+                shapes.add((tuple(image.shape), coords.shape[1]))
+                beyond = float((coords.abs() > 1).any(-1).float().mean())
+                if n_fwd <= 25:
+                    outside.append(beyond)
+                ok, e = compare_fwd(
+                    f"{tag} "
+                    + (f"window sample {n_fwd}" if n_fwd <= 25
+                       else "refined source points")
+                    + f" ({100 * beyond:.2f} % beyond the border)", image,
+                    coords)
+                key = ("grid_sample_patch_fwd", "latent")
+                err[key] = max(err.get(key, 0.0), e)
+                ok_all &= ok
+            elif name == "grid_sample_patch_bwd_cuda":
+                need = tuple(args[3:5])
+                coord_bwd += need[1]
+                flags = (need,) if need[1] else (need, (True, True))
+                ok, worst, text = compare_k2_bwd(f"{stage}", *args[:3],
+                                                 flags=flags)
+                key = ("grid_sample_patch_bwd", "latent")
+                err[key] = max(err.get(key, 0.0), worst)
+                ok_all &= ok
+                n_bwd += 1
+                if need[1] or n_bwd == 2 or not ok:
+                    log(f"[11] K2 backward {n_bwd} of the {stage} step (the "
+                        f"{'refined source points' if need[1] else 'window'})"
+                        f", need {tuple(map(int, need))}, {text}: "
+                        f"{'ok' if ok else 'FAIL'}")
+        ok = (n_knn == 3 and n_fwd == 26 and n_bwd == (26 if step else 0)
+              and coord_bwd == int(step)
+              and (max(outside, default=0) > 0 if step else True))
+        ok_all &= ok
+        log(f"[11] captured on {LEGACY_CAPTURE}, {tag} {n_knn} K1 calls, "
+            f"{n_fwd} K2 forward calls at {sorted(shapes)} (window samples "
+            f"beyond the border: {100 * min(outside, default=0):.2f}-"
+            f"{100 * max(outside, default=0):.2f} % of points), {n_bwd} K2 "
+            f"backward calls, {coord_bwd} with the coordinate gradient; "
+            f"every one against its plain version: "
+            f"{'ok' if ok else 'FAIL'}")
+    if not ok_all or len(stages) != 4:
+        log(f"[11] kernel comparisons on {len(stages)} captured stages "
+            f"({stages}), 4 expected: FAIL")
+        raise SystemExit(1)
+    return err
+
+
 def merge_path(records, launches, errs):
     """Add a path's launches (``launches_<run>``) and the worst errors of
     its comparisons (K2's keyed by latent or RGB) to the kernel records."""
@@ -2882,7 +3362,7 @@ def main(argv=None):
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--stop-after", type=int, default=10,
+    ap.add_argument("--stop-after", type=int, default=11,
                     help="end after this phase (no result lines)")
     stop_after = ap.parse_args(argv).stop_after
 
@@ -3219,6 +3699,21 @@ def main(argv=None):
         if rec["name"] == "grid_sample_patch_bwd":
             rec["variant_plain_step"] = bwd_times
     log(f"[10] phase in {time.perf_counter() - t0:.0f} s; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+    if stop_after <= 10:
+        return 0
+
+    # ---- 11. the legacy family and the legacy eval at full width
+    t0 = time.perf_counter()
+    legacy_launches, _, calls = train_legacy(dev)
+    legacy_view_launches, _, view_calls = legacy_view(dev)
+    cli_launches, _, cli_calls = legacy_cli_on_the_card(dev)
+    errs = compare_legacy_inputs(calls + view_calls + cli_calls)
+    del calls, view_calls, cli_calls
+    merge_path(records, {"legacy": legacy_launches,
+                         "legacy_view": legacy_view_launches,
+                         **cli_launches}, errs)
+    log(f"[11] phase in {time.perf_counter() - t0:.0f} s; total "
         f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

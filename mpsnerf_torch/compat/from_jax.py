@@ -5,7 +5,9 @@ nested dicts of numpy arrays; output is a ``state_dict`` that
 ``MPSNeRF.load_state_dict(strict=True)`` accepts, for every option of
 the model: the encoders, the transformer, the MLP, ``latent_codes``, the
 sparse 3D encoder and the deform fields (``forward_deform``,
-``backward_correction``, ``backward_deform``).  It is the inverse of
+``backward_correction``, ``backward_deform``); and for the legacy
+``CorrectionF3D``, ``CorrectionUvhAgg`` and ``VanillaNeRF``, whose
+variables use the same names.  It is the inverse of
 ``mpsnerf_tpu/compat/torch_import.py:convert_reference_state_dict``: conv
 kernels HWIO -> OIHW, sparse-conv kernels (27, Cin, Cout) -> spconv's
 (Cout, 3, 3, 3, Cin), Dense kernels transposed, BatchNorm scale/bias/mean/
@@ -126,11 +128,16 @@ def deform_state_dict(params: Dict, prefix: str = ""):
 
 
 def from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``MPSNeRF`` variables -> the port's ``MPSNeRF`` state dict."""
+    """JAX variables -> the port's state dict, for ``MPSNeRF``,
+    ``CorrectionF3D``, ``CorrectionUvhAgg`` and ``VanillaNeRF`` (which has
+    no encoder, no ``batch_stats`` and, without view directions, one
+    ``output_linear``)."""
     params = variables["params"]
-    sd = encoder_state_dict(params["encoder_2d"],
-                            variables["batch_stats"]["encoder_2d"],
-                            "encoder_2d.")
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+    if "encoder_2d" in params:
+        sd.update(encoder_state_dict(params["encoder_2d"],
+                                     stats["encoder_2d"], "encoder_2d."))
     if "transformer" in params:
         sd.update(transformer_state_dict(params["transformer"],
                                          "transformer."))
@@ -139,14 +146,14 @@ def from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         _linear(sd, f"pts_linears.{i}", params[f"pts_linear_{i}"])
         i += 1
     for name in ("alpha_linear", "feature_linear", "views_linear",
-                 "rgb_linear"):
-        _linear(sd, name, params[name])
+                 "rgb_linear", "output_linear"):
+        if name in params:
+            _linear(sd, name, params[name])
     if "latent_codes" in params:
         sd["latent_codes.weight"] = _tensor(params["latent_codes"]["embedding"])
     if "encoder_3d" in params:
         sd.update(encoder_3d_state_dict(params["encoder_3d"],
-                                        variables["batch_stats"]["encoder_3d"],
-                                        "encoder_3d."))
+                                        stats["encoder_3d"], "encoder_3d."))
     for field in ("forward_deform", "backward_correction", "backward_deform"):
         if field in params:
             sd.update(deform_state_dict(params[field], field + "."))

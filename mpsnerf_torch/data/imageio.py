@@ -13,8 +13,10 @@ machine has no ``cv2``).  Every loader reads images through :func:`imread`.
   the image (``BORDER_CONSTANT``).
 - :func:`resize`: ``cv2.resize`` with ``INTER_AREA`` (box mean for an
   integer downscale, area weights for any other downscale, OpenCV's
-  area-mode bilinear for an upscale) and ``INTER_NEAREST`` (source index
-  ``floor(dst * src / dst)``).
+  area-mode bilinear for an upscale), ``INTER_NEAREST`` (source index
+  ``floor(dst * src / dst)``) and, for 8-bit images, ``INTER_LINEAR``
+  (OpenCV's fixed point: 11-bit weights, ``INTER_RESIZE_COEF_BITS``, the
+  rows' sums rounded as its vector path rounds them).
 - :func:`erode` / :func:`dilate`: a square kernel of ones at OpenCV's
   default anchor ``(k // 2, k // 2)`` (for an even ``k`` the window is
   ``[x - k // 2, x + k - 1 - k // 2]``); the image edge neither erodes nor
@@ -34,6 +36,7 @@ import numpy as np
 
 AREA = "area"
 NEAREST = "nearest"
+LINEAR = "linear"
 
 _INTER_BITS = 5
 _INTER_TAB = 1 << _INTER_BITS  # 32 sub-pixel positions per axis
@@ -327,14 +330,59 @@ def _upscale_taps(ssize: int, dsize: int, scale: float, inv: float):
     return s, np.minimum(s + 1, ssize - 1), f
 
 
+_RESIZE_COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS
+
+
+def _linear_taps(ssize: int, dsize: int, clamp: bool):
+    """OpenCV's bilinear taps: source index and the two 11-bit weights per
+    destination pixel, the position ``(d + 0.5) * scale - 0.5`` in float32.
+    Columns (``clamp``) pin a tap outside the image to the edge with weight
+    0; rows keep the index and clamp the row they read."""
+    d = np.arange(dsize, dtype=np.float64)
+    f = ((d + 0.5) * (ssize / dsize) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(np.float32)).astype(np.float32)
+    if clamp:
+        out = (s < 0) | (s >= ssize - 1)
+        f[out] = 0
+        s = np.clip(s, 0, ssize - 1)
+    one = np.float32(1 << _RESIZE_COEF_BITS)
+    return (s, np.rint((np.float32(1) - f) * one).astype(np.int64),
+            np.rint(f * one).astype(np.int64))
+
+
+def _resize_linear_u8(img: np.ndarray, dw: int, dh: int) -> np.ndarray:
+    """``cv2.resize(img, (dw, dh))`` of a uint8 image: the horizontal pass
+    in 32-bit integers, then the vertical pass on the rows' sums shifted
+    right by 4, each product's high 16 bits, (sum + 2) >> 2."""
+    sh, sw = img.shape[:2]
+    x = img.astype(np.int64)
+    xs, ax0, ax1 = _linear_taps(sw, dw, True)
+    ys, ay0, ay1 = _linear_taps(sh, dh, False)
+    col = (-1,) + (1,) * (img.ndim - 2)
+    rows = (x[:, xs] * ax0.reshape(col)
+            + x[:, np.minimum(xs + 1, sw - 1)] * ax1.reshape(col))
+    s0 = rows[np.clip(ys, 0, sh - 1)] >> 4
+    s1 = rows[np.clip(ys + 1, 0, sh - 1)] >> 4
+    row = (-1, 1) + (1,) * (img.ndim - 2)
+    out = (((s0 * ay0.reshape(row)) >> 16) + ((s1 * ay1.reshape(row)) >> 16)
+           + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
 def resize(img: np.ndarray, dsize: Tuple[int, int], interpolation: str
            ) -> np.ndarray:
-    """``cv2.resize(img, dsize, interpolation=INTER_AREA or
-    INTER_NEAREST)``; ``dsize`` is (width, height) as in OpenCV."""
+    """``cv2.resize(img, dsize, interpolation=INTER_AREA, INTER_NEAREST
+    or INTER_LINEAR)``; ``dsize`` is (width, height) as in OpenCV."""
     dw, dh = int(dsize[0]), int(dsize[1])
     sh, sw = img.shape[:2]
     inv_x, inv_y = dw / sw, dh / sh
     scale_x, scale_y = 1.0 / inv_x, 1.0 / inv_y
+    if interpolation == LINEAR:
+        if img.dtype != np.uint8:
+            raise TypeError(f"INTER_LINEAR of {img.dtype} images is not "
+                            "transcribed")
+        return _resize_linear_u8(img, dw, dh)
     if interpolation == NEAREST:
         xs = np.minimum(np.floor(np.arange(dw) * scale_x).astype(np.int64),
                         sw - 1)

@@ -1,9 +1,12 @@
 """Whole-view rendering and the eval entry points (port of
 ``mpsnerf_tpu/eval/runner.py``): the synthetic protocol, THuman's
 ``test_THuman_ssim`` (held-out humans 25-29 of the list, start poses
-[20, 24, 27, 25, 28], novel views [1, 5, 7, 11, 13, 17, 19, 23]) and
-H36M's ``test_H36M`` (per-subject pose tables, novel view camera 3,
-masked-ray rendering, the unmasked image as the ground truth).
+[20, 24, 27, 25, 28], novel views [1, 5, 7, 11, 13, 17, 19, 23]), H36M's
+``test_H36M`` (per-subject pose tables, novel view camera 3,
+masked-ray rendering, the unmasked image as the ground truth) and the
+reference's inline ``test`` for every other data set
+(:func:`run_legacy_test`: every 12th view, side-by-side PNGs, the sweep
+videos).
 
 :class:`ViewRenderer` renders a target view conditioned on a source item
 on one of two paths:
@@ -15,14 +18,16 @@ on one of two paths:
   the fine pre-pass (exact 5 cm mask and nearest-vertex ids; ``fine``),
   the render, and the scatter of the rendered rays into the full image;
 - the chunked path (``global_compact=False``, ``n_importance > 0``, or a
-  model without the human-region mask, ``human_sample`` off, which
-  evaluates every sample and so has neither the global path nor the box
-  cull): the rays, shuffled by a fixed permutation, in chunks of
+  model without ``MPSNeRF``'s human-region mask: ``human_sample`` off, or
+  the numpy-era ``CorrectionF3D``/``CorrectionUvhAgg``, which evaluate
+  every sample and so have neither the global path nor the box cull):
+  the rays, shuffled by a fixed permutation, in chunks of
   ``chunk`` through :func:`render_rays` at ``eval_compact_fraction``; a
   chunk that dropped points renders again uncompacted.
 
 A model with a correction field reads the sparse-conv plan of the target
-and source items; it is attached to an item that has none.
+and source items (and of their canonical grids, ``canonical_grid``); it is
+attached to an item that has none.
 
 The JAX runner's capacity ladder and power-of-two ray padding exist so
 that XLA compiles few shapes; nothing compiles here, so capacities are the
@@ -203,12 +208,14 @@ class ViewRenderer:
         self.model = model
         # the global path's plan covers only the stratified z ladder, so
         # the hierarchical union takes the chunked path; the global path
-        # and the box cull both rest on the 5 cm mask's -80 fill, which a
-        # model without the human mask does not have
-        self.global_compact = (global_compact and n_importance == 0
-                               and model.human_sample)
+        # and the box cull both rest on MPSNeRF's 5 cm mask (its -80 fill,
+        # and the fine pre-pass's nearest-vertex ids), which a model
+        # without the mask, or another model (the numpy-era correction
+        # family evaluates every sample), does not have
+        masked = isinstance(model, MPSNeRF) and model.human_sample
+        self.global_compact = global_compact and n_importance == 0 and masked
         self.fine = fine
-        self.box_cull = box_cull and model.human_sample
+        self.box_cull = box_cull and masked
         self.smpl_selector = smpl_selector
         self.chunk = chunk
         self.n_samples = n_samples
@@ -261,9 +268,11 @@ class ViewRenderer:
         if "body_grid" not in tp_item:
             attach_body_grid(tp_item)
         if self.model.correction_field:
+            canonical = bool(getattr(self.model, "canonical_grid", False))
             for it in (tp_item, sp_item):
-                if "spconv_plan" not in it:
-                    attach_spconv_plan(it)
+                if "spconv_plan" not in it or (canonical
+                                               and "t_spconv_plan" not in it):
+                    attach_spconv_plan(it, canonical=canonical)
         sp = self._device_side(sp_item)
         tp = self._device_side(tp_item)
         smpl = self.smpl_selector(int(sp_item["gender"])).to(self.device)
@@ -585,3 +594,62 @@ def run_h36m_eval(args, model: MPSNeRF, smpl_selector: Callable,
         render_view, humans, H36M_NOVEL_VIEW, image_hw, image_hw, savedir,
         start_poses={name: H36M_START_POSE[p]}, verbose=verbose,
         gt_fn=gt_fn, render_async=(dispatch, renderer.finish_view))
+
+
+def run_legacy_test(args, model, smpl_selector: Callable, savedir: str,
+                    items, view_interval: int = 12, H: int = 512,
+                    W: int = 512, data_interval: int = 1,
+                    start_pose: int = 0, device="cuda") -> float:
+    """The reference's inline ``test``: every ``view_interval``-th view of
+    each item rendered with the first item as the source; per view a PNG
+    of the source's input views (resized, as ``cv2.resize`` does, to the
+    width of) pred | gt side by side, named ``{source:02d}_{target:02d}_
+    {view:02d}.png``, and ``frame{f:04d}_view{k:04d}[_gt].png``; then
+    ``psnr_<100 x mean>.npy`` and the novel-pose and novel-view sweep
+    videos.  Returns the mean PSNR over ``mask_at_box``."""
+    from mpsnerf_torch.data.imageio import LINEAR, resize
+    from mpsnerf_torch.eval.metrics import psnr_metric
+    from mpsnerf_torch.eval.protocol import encode_png, to8b
+    from mpsnerf_torch.eval.video import write_sweep_videos
+
+    def imwrite(name, img8):
+        with open(os.path.join(savedir, name), "wb") as f:
+            f.write(encode_png(img8))
+
+    os.makedirs(savedir, exist_ok=True)
+    renderer = ViewRenderer(
+        model, smpl_selector, chunk=args.chunk, n_samples=args.N_samples,
+        n_importance=getattr(args, "N_importance", 0),
+        white_bkgd=args.white_bkgd, device=device)
+    total_psnr, num = 0.0, 0
+    sp_item = items[0]
+    strip = to8b(np.concatenate(
+        [np.transpose(v, (1, 2, 0)) for v in np.asarray(sp_item["img_all"])],
+        axis=1))
+    src = int(sp_item["pose_index"])
+    # the strip at the side-by-side's width (2 W)
+    top = resize(strip, (2 * W, int(strip.shape[0] * 2 * W
+                                    / strip.shape[1])), LINEAR)
+    for item in items:
+        tgt = int(item["pose_index"])
+        for k in range(0, item["rgb_all"].shape[0], view_interval):
+            pred = renderer.render_view(sp_item, item, k).reshape(H, W, 3)
+            gt = np.asarray(item["rgb_all"][k]).reshape(H, W, 3)
+            mask = np.asarray(item["mask_at_box_all"][k]).reshape(H, W) > 0
+            psnr = psnr_metric(pred[mask], gt[mask])
+            total_psnr += psnr
+            num += 1
+            print("[Test] Source:", src, " Target:", tgt, " View:", k,
+                  " PSNR: ", round(psnr, 3))
+            side = np.concatenate([to8b(pred), to8b(gt)], axis=1)
+            imwrite(f"{src:02d}_{tgt:02d}_{k:02d}.png",
+                    np.concatenate([top, side], axis=0))
+            frame = tgt * data_interval + start_pose
+            imwrite(f"frame{frame:04d}_view{k:04d}.png", to8b(pred))
+            imwrite(f"frame{frame:04d}_view{k:04d}_gt.png", to8b(gt))
+    avg = total_psnr / max(num, 1)
+    np.save(os.path.join(savedir, f"psnr_{int(avg * 100)}.npy"),
+            np.array(avg))
+    write_sweep_videos(savedir, novel_pose_suffix=f"_{view_interval:02d}.png",
+                       novel_view_prefix="00_00_")
+    return avg

@@ -1,11 +1,13 @@
 """Model and dataset factories (port of ``mpsnerf_tpu/factory.py``).
 
 ``return_model`` maps ``--model`` to ``MPSNeRF`` with the variant's flags
-over the command line's (``_MODEL_VARIANTS``, the JAX package's table);
-``return_dataset`` maps ``--data_set_type`` to a loader with the split's
-windowing arguments.  The numpy-era ``correction_by_f3d*`` and
-``correction_by_uvh_agg*`` models and unknown names raise
-``NotImplementedError``.
+over the command line's (``_MODEL_VARIANTS``, the JAX package's table), or
+to the numpy-era per-sample models: ``correction_by_f3d`` and
+``correction_by_f3d_fagg`` (``CorrectionF3D``, the ``_fagg`` with the
+windowed aggregate), ``correction_by_uvh_agg`` and
+``correction_by_uvh_agg_fagg`` (``CorrectionUvhAgg``); unknown names raise
+``NotImplementedError``.  ``return_dataset`` maps ``--data_set_type`` to a
+loader with the split's windowing arguments.
 """
 
 from __future__ import annotations
@@ -41,17 +43,29 @@ _MODEL_VARIANTS = {
 }
 
 
-def return_model(args: Any) -> MPSNeRF:
+LEGACY_MODELS = ("correction_by_f3d", "correction_by_f3d_fagg",
+                 "correction_by_uvh_agg", "correction_by_uvh_agg_fagg")
+
+
+def return_model(args: Any):
     name = args.model
-    if name.startswith(("correction_by_f3d", "correction_by_uvh_agg")):
-        raise NotImplementedError(
-            f"model '{name}' (CorrectionF3D / CorrectionUvhAgg, "
-            "models/correction_f3d.py) is not ported yet (ROADMAP.md item "
-            "6)")
+    if name in ("correction_by_f3d", "correction_by_f3d_fagg"):
+        from mpsnerf_torch.models.correction_f3d import CorrectionF3D
+
+        return CorrectionF3D(
+            use_agg=name.endswith("_fagg"), use_f2d=bool(args.use_f2d),
+            with_viewdirs=bool(args.with_viewdirs),
+            human_sample=bool(args.human_sample),
+            use_transformer=bool(args.use_trans))
+    if name in ("correction_by_uvh_agg", "correction_by_uvh_agg_fagg"):
+        from mpsnerf_torch.models.correction_f3d import CorrectionUvhAgg
+
+        return CorrectionUvhAgg(use_agg=name.endswith("_fagg"),
+                                use_f2d=bool(args.use_f2d))
     if name not in _MODEL_VARIANTS:
         raise NotImplementedError(
             f"model '{name}' is not available: "
-            + ", ".join(sorted(_MODEL_VARIANTS)))
+            + ", ".join(sorted(_MODEL_VARIANTS) + list(LEGACY_MODELS)))
     fraction = getattr(args, "compact_fraction", None)
     kwargs = dict(
         num_instances=args.num_instance,

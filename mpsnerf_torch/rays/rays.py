@@ -1,7 +1,8 @@
 """Ray generation and the train-time ray sampler on the host (port of
 ``mpsnerf_tpu/rays/rays.py``: ``get_rays``, ``get_near_far``,
 ``project_points``, ``get_bound_2d_mask``, ``RayBatch``,
-``sample_rays_batch`` and ``sample_rays_h36m_batch``; numpy, no OpenCV).
+``sample_rays_batch``, ``sample_rays_h36m_batch`` and ``sample_rays_ohem``;
+numpy, no OpenCV).
 
 ``get_bound_2d_mask`` rasterises the six faces of the projected box with
 :func:`fill_poly`, a numpy/python transcription of OpenCV's ``fillPoly``
@@ -465,3 +466,74 @@ def sample_rays_h36m_batch(
 
     return _resample_until(img, ray_o, ray_d, bounds, n_rays,
                            (coord_body, coord_bg, coord_outer), counts, rng)
+
+
+def sample_rays_ohem(
+    img: np.ndarray,
+    loss_img: np.ndarray,
+    msk: np.ndarray,
+    K: np.ndarray,
+    R: np.ndarray,
+    T: np.ndarray,
+    bounds: np.ndarray,
+    n_rays: int,
+    split: str,
+    rng: Optional[np.random.Generator] = None,
+) -> RayBatch:
+    """Online hard-example mining: 80 % of the rays drawn without
+    replacement from the in-box pixels in proportion to the per-pixel
+    ``loss_img`` (uniform where it is all zero), 20 % uniform in-box,
+    resampled until ``n_rays`` rays hit the box; the draws come from
+    ``rng`` in the JAX package's order.  Test: every pixel."""
+    if rng is None:
+        rng = np.random.default_rng()
+    H, W = img.shape[:2]
+    ray_o, ray_d = get_rays(H, W, K, R, T)
+    if split != "train":
+        return _full_image_batch(img, ray_o, ray_d, bounds)
+    pose = np.concatenate([R, T.reshape(3, 1)], axis=1)
+    coord_all = np.argwhere(get_bound_2d_mask(bounds, K, pose, H, W) == 1)
+    loss = loss_img[coord_all[:, 0], coord_all[:, 1]].astype(np.float64)
+    n_nonzero = int((loss > 0).sum())
+    if n_nonzero == 0:
+        loss = np.full(len(coord_all), 1.0 / max(len(coord_all), 1))
+        n_nonzero = len(coord_all)
+    else:
+        loss = loss / loss.sum()
+
+    lists = {k: [] for k in RayBatch._fields}
+    n_sampled = 0
+    while n_sampled < n_rays:
+        n_rand = n_rays - n_sampled
+        # without replacement: at most the pixels of non-zero weight
+        n_hard = min(int(n_rand * 0.8), n_nonzero, len(coord_all))
+        idx_hard = rng.choice(len(coord_all), size=n_hard, replace=False,
+                              p=loss)
+        idx_unif = rng.integers(0, len(coord_all), n_rand - n_hard)
+        coord = coord_all[np.concatenate([idx_hard, idx_unif])]
+
+        o = ray_o[coord[:, 0], coord[:, 1]]
+        d = ray_d[coord[:, 0], coord[:, 1]]
+        near, far, hit = get_near_far(bounds, o, d)
+        lists["ray_o"].append(o[hit])
+        lists["ray_d"].append(d[hit])
+        lists["rgb"].append(img[coord[:, 0], coord[:, 1]][hit])
+        lists["near"].append(near)
+        lists["far"].append(far)
+        lists["coord"].append(coord[hit])
+        lists["bkgd_msk"].append(
+            (msk[coord[:, 0], coord[:, 1]] != 0)[hit][:, None])
+        lists["mask_at_box"].append(hit[hit])
+        n_sampled += len(near)
+
+    out = {k: np.concatenate(v)[:n_rays] for k, v in lists.items()}
+    return RayBatch(
+        rgb=out["rgb"].astype(np.float32),
+        ray_o=out["ray_o"].astype(np.float32),
+        ray_d=out["ray_d"].astype(np.float32),
+        near=out["near"].astype(np.float32),
+        far=out["far"].astype(np.float32),
+        coord=out["coord"].astype(np.int64),
+        mask_at_box=out["mask_at_box"],
+        bkgd_msk=out["bkgd_msk"].astype(np.float32),
+    )

@@ -18,15 +18,20 @@ the view-step counter crosses a multiple of ``i_weights``, scalars at
 ``<basedir>/<expname>/testset_<step>``.  ``MPSNERF_PROFILE_DIR`` writes a
 ``torch.profiler`` trace of the second item there.
 
-Every model string of ``mpsnerf_torch/factory.py`` and every model flag
-trains.  A pair data set (``H36M_P``, ``THuman_P``) gives each item as a
-source and a target; the target's rays drive the step and its image term
-counts only where the two poses match.  With a correction field each
-item gets its sparse-conv plan.
+Every model string of ``mpsnerf_torch/factory.py`` (the numpy-era
+``correction_by_*`` models too) and every model flag trains.  A pair data
+set (``H36M_P``, ``THuman_P``) gives each item as a source and a target;
+the target's rays drive the step and its image term counts only where the
+two poses match.  With a correction field each item gets its sparse-conv
+plan (and its canonical grid's, for the numpy-era models).  The eval is
+the synthetic, THuman or H36M protocol, and for every other data set
+(``THuman_B_R``, ``THuman_P``, ``H36M_B_All``) the reference's inline
+test (``run_legacy_test``: poses 13 and 14 of the test split, every 12th
+view, side-by-side PNGs and the sweep videos).
 
 ``--device`` (default ``cuda``) picks the device; there is no fallback to
 the CPU.  One item at a time on one device: ``--batch_size`` > 1 and
-``--mesh_devices`` raise; the ``correction_by_*`` models raise.
+``--mesh_devices`` raise.
 """
 
 from __future__ import annotations
@@ -161,9 +166,18 @@ def main(argv=None):
         if dst in ("H36M_B", "H36M", "H36M_P"):
             return runner.run_h36m_eval(args, trainer.model, smpl_selector,
                                         savedir, device=device)
-        raise NotImplementedError(
-            f"the eval of data_set_type '{dst}' is the reference's inline "
-            "test (run_legacy_test), not ported (ROADMAP.md item 5)")
+        # every other data set: the reference's inline test on the test
+        # split's poses 13 and 14, the first the source (a pair item's
+        # target)
+        targs = types.SimpleNamespace(**vars(args))
+        targs.start, targs.interval, targs.poses_num = 13, 1, 2
+        test_set = return_dataset(targs, split=args.test_split)
+        items = [test_set[i] for i in range(min(len(test_set), 2))]
+        items = [it["tp_input"] if "sp_input" in it else it for it in items]
+        hw = int(512 * (args.image_scaling or 1.0))
+        return runner.run_legacy_test(
+            args, trainer.model, smpl_selector, savedir, items, H=hw, W=hw,
+            data_interval=1, start_pose=13, device=device)
 
     if args.save_weights == 0:
         tag = f"testset_{trainer.global_step:06d}_more_real_ssim_psnr"
@@ -183,6 +197,9 @@ def main(argv=None):
     primary = (not torch.distributed.is_initialized()
                or torch.distributed.get_rank() == 0)
 
+    # the numpy-era models' NeRF reads the canonical grid too
+    canonical = bool(getattr(model, "canonical_grid", False))
+
     def prepare(item):
         """A loader item -> (rig, source, target) on the device."""
         if pair_mode:
@@ -190,11 +207,11 @@ def main(argv=None):
         else:
             sp_item = tp_item = item
         if model.correction_field:
-            attach_spconv_plan(tp_item)
+            attach_spconv_plan(tp_item, canonical=canonical)
             if sp_item is not tp_item:
                 # the instance style's backward correction reads the
                 # source pose's voxel grid
-                attach_spconv_plan(sp_item)
+                attach_spconv_plan(sp_item, canonical=canonical)
         smpl = smpl_models[int(sp_item["gender"])]
         tp = to_device_input(tp_item, device, rays=True)
         sp = tp if sp_item is tp_item else to_device_input(sp_item, device)

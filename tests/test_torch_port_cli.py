@@ -316,8 +316,8 @@ def test_cli_thuman_trains(tree, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra,part", [
     (("--batch_size", 2), "batched and sharded trainers"),
-    (("--batch_size", 1, "--model", "correction_by_f3d"), "item 6"),
-    (("--batch_size", 1, "--model", "correction_by_uvh_agg"), "item 6"),
+    (("--batch_size", 1, "--mesh_devices", 2), "item 8"),
+    (("--batch_size", 1, "--mesh_devices", 4), "item 8"),
     (("--batch_size", 1, "--model", "nope"), "not available"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, extra, part):
