@@ -158,6 +158,32 @@ non-zero):
      beyond the border) and the refined source points, and on the steps
      K2's backward with the coordinate gradient there and each window
      sample's backward;
+  12. geometry and serving at full width (the flagship widths, phase 4's
+     serving scene, the 6890-vertex rig): (a) ``extract_thuman_mesh_torch
+     .main`` on the flagship config over a 512^2 THuman-layout fixture (24
+     cameras, the seeded weights saved as its checkpoint) at ``--mesh_N``
+     256, in the target frame and with ``--can_flag 1``: ms of the density
+     queries, the K1 mask, the K=5 carve and marching cubes, vertex and
+     triangle counts, ``n_dropped``, the vertices finite and inside the grid
+     box; (b) ``render_thuman_mesh_torch.main`` on the two OBJ files (3
+     cameras, 512^2): the RGBA PNGs decode, coverage > 0; (c)
+     ``MeshAnimationRenderer`` baked at (a)'s canonical mesh, ``render_pose``
+     at 512^2 from the item's 3 cameras, fast and full: ms, hit pixels,
+     sample points, finite pixels; (d) a port bundle of the seeded model
+     served by ``BundleServer`` on 127.0.0.1, port 0, in this process:
+     /healthz, /manifest, /render?view=1 (equal to
+     ``ViewRenderer.render_view`` within 1e-5), /camera at view 1's camera
+     (equal to /render within 1e-5), /spiral (4 frames at 256^2, with and
+     without ``format=video``: the AVI's index read back), /mesh?n=128 (its
+     triangle count equal to a direct ``extract_density_mesh`` on the
+     bundle's model), /animate?view=1 full and fast; each request's wall ms
+     with HTTP; (e) phase 2's comparisons on what (a)-(d) gave the kernels:
+     K1 and K2's forward on the middle query chunk of each extraction, on
+     the first chunk of the bake and of the animation samples, on the
+     first served /spiral frame's fine pre-pass and first tail tile and on
+     the served /mesh's middle query chunk, and K1 on a
+     2,097,152-point slice of the 256^3 grid's mask call (ids and d2
+     equal), with K1 timed on the whole grid (ms, pairs, bound);
   then one ``{"kernels": [...]}`` line: each kernel's record from phase 7
      with its launches on each path (``launches``: phase 5;
      ``launches_serving``: phase 4; ``launches_eval``,
@@ -166,13 +192,14 @@ non-zero):
      ``launches_variants``, ``launches_variant_views``,
      ``launches_h36m_cli``, ``launches_h36m_eval``: phase 10;
      ``launches_legacy``, ``launches_legacy_view``,
-     ``launches_legacy_cli``, ``launches_legacy_eval``: phase 11), and
-     K2's backward record
-     ``variant_plain_step`` (phase 10 (d)'s times);
-  12. the device line, last.
+     ``launches_legacy_cli``, ``launches_legacy_eval``: phase 11;
+     ``launches_mesh``, ``launches_animate``, ``launches_serve``: phase
+     12), K2's backward record ``variant_plain_step`` (phase 10 (d)'s
+     times) and K1's ``shapes["mesh_grid"]`` (phase 12 (e));
+  13. the device line, last.
 
 Launch counts are set to 0 just before each path (phases 4, 5, 6, 8, 9,
-10, 11)
+10, 11, 12)
 and read just after; launches made to compare or time a kernel do not
 count.
 ``--stop-after N`` ends the run after phase N (a short check of a new
@@ -3002,36 +3029,34 @@ def train_legacy(dev, size=512, n_verts=6890, n_rays=1000, n_samples=128):
     return read_counts(), results, spy.calls
 
 
-class first_chunk:
-    """Sets ``spy.stage`` to ``stage`` for the first chunk that any
-    ``ViewRenderer`` renders on its chunked path inside the block, and back
-    to None after it."""
+class nth_call:
+    """Sets ``spy.stage`` to ``stage`` for the ``n``-th call (from 0) of
+    ``owner.name`` inside the block, and back to None after it."""
 
-    def __init__(self, spy, stage):
-        self.spy, self.stage = spy, stage
+    def __init__(self, spy, stage, owner, name, n=0):
+        self.spy, self.stage, self.owner, self.name, self.n = (
+            spy, stage, owner, name, n)
 
     def __enter__(self):
-        from mpsnerf_torch.eval.runner import ViewRenderer
+        self.orig = getattr(self.owner, self.name)
+        count = [0]
 
-        self.orig, done = ViewRenderer._chunk, []
-
-        def chunk(renderer, *a, **k):
-            if done:
-                return self.orig(renderer, *a, **k)
-            done.append(True)
-            self.spy.stage = self.stage
+        def call(*a, **k):
+            hit = count[0] == self.n
+            count[0] += 1
+            if hit:
+                self.spy.stage = self.stage
             try:
-                return self.orig(renderer, *a, **k)
+                return self.orig(*a, **k)
             finally:
-                self.spy.stage = None
+                if hit:
+                    self.spy.stage = None
 
-        ViewRenderer._chunk = chunk
+        setattr(self.owner, self.name, call)
         return self
 
     def __exit__(self, *exc):
-        from mpsnerf_torch.eval.runner import ViewRenderer
-
-        ViewRenderer._chunk = self.orig
+        setattr(self.owner, self.name, self.orig)
 
 
 def legacy_view(dev, size=256, n_verts=6890, n_samples=128):
@@ -3061,7 +3086,8 @@ def legacy_view(dev, size=256, n_verts=6890, n_samples=128):
     # kernels' inputs in its first chunk are kept for phase 11 (d) (their
     # copies, ~0.5 GB, add a fraction of a ms to its busy time)
     spy = kernel_spy()
-    with uncounted(), spy, first_chunk(spy, "(b) view 1, chunk 0,"), \
+    with uncounted(), spy, nth_call(spy, "(b) view 1, chunk 0,",
+                                    ViewRenderer, "_chunk"), \
             profile(activities=[ProfilerActivity.CUDA]) as prof:
         r.render_view(item, item, 1)
         torch.cuda.synchronize()
@@ -3146,6 +3172,7 @@ def legacy_cli_on_the_card(dev, size=512, scaling=0.5, n_verts=6890,
     import torch
 
     import run_nerf_batch_torch
+    from mpsnerf_torch.eval.runner import ViewRenderer
     from mpsnerf_torch.train.trainer import Trainer
 
     on_card = torch.device(dev).type == "cuda"
@@ -3196,7 +3223,8 @@ def legacy_cli_on_the_card(dev, size=512, scaling=0.5, n_verts=6890,
                 n_train_calls = len(spy.calls)
                 reset_counts()
                 t0 = time.perf_counter()
-                with first_chunk(spy, "(c) eval view 0, chunk 0,"):
+                with nth_call(spy, "(c) eval view 0, chunk 0,",
+                              ViewRenderer, "_chunk"):
                     run = run_nerf_batch_torch.main(argv + [
                         "--save_weights", "0", "--image_scaling",
                         str(scaling)])
@@ -3342,6 +3370,412 @@ def compare_legacy_inputs(calls):
     return err
 
 
+# ---- phase 12: geometry and serving at full width ---------------------------
+
+MESH_N = 256       # the extraction grid's points per axis (the CLI default)
+SERVE_MESH_N = 128
+MESH_CHUNK = 262144  # the CLI's points per density query
+
+
+def compare_geometry_inputs(calls):
+    """Phase 12 (e), phase 2's comparisons on what the geometry paths gave
+    the kernels, per captured stage (an extraction chunk in each frame, a
+    bake chunk, an animation sample chunk, the first served /spiral frame's
+    fine pre-pass and first tail tile, a served /mesh chunk): K1's ids and
+    d2 on every call, K2's forward on the latent and the RGB.  Returns the
+    worst errors, K2's keyed by (kernel, "latent" or "rgb")."""
+    err, ok_all = {"nearest_vertex": 0.0}, True
+    stages = list(dict.fromkeys(stage for stage, _, _ in calls))
+    for stage in stages:
+        n_knn = n_fwd = 0
+        for _, name, args in (c for c in calls if c[0] == stage):
+            if name == "nearest_vertex_cuda":
+                n_knn += 1
+                e, _ = compare_knn(f"{stage}, call {n_knn}", args[0], args[1],
+                                   args[2])
+                err["nearest_vertex"] = max(err["nearest_vertex"], e)
+            elif name == "grid_sample_patch_fwd_cuda":
+                n_fwd += 1
+                image, coords = args
+                which = "rgb" if image.shape[1] == 3 else "latent"
+                ok, e = compare_fwd(f"{stage} {which}", image, coords)
+                key = ("grid_sample_patch_fwd", which)
+                err[key] = max(err.get(key, 0.0), e)
+                ok_all &= ok
+        ok = n_knn >= 1 and n_fwd >= 2
+        ok_all &= ok
+        log(f"[12] captured {stage}: {n_knn} K1 and {n_fwd} K2 forward "
+            f"calls, each against its plain version: "
+            f"{'ok' if ok else 'FAIL'}")
+    if not ok_all or len(stages) != 6:
+        log(f"[12] kernel comparisons on {len(stages)} captured stages "
+            f"({stages}), 6 expected: FAIL")
+        raise SystemExit(1)
+    return err
+
+
+def knn_grid_record(q, v, clock_mhz, per_pair):
+    """K1 on the whole extraction grid (the carve's 5 cm mask call): ms,
+    the pairs it evaluated, its bound, the instruction rate on those
+    pairs and on every pair (phase 7's terms; the plain version is held
+    on a slice, and neither it nor ``cdist`` is timed at this size)."""
+    from mpsnerf_torch.ops import knn
+
+    n, nv = q.shape[0], v.shape[0]
+    b = knn.build_vertex_buckets(v)
+    rate = FP32_LANES * clock_mhz * 1e6
+    with uncounted():
+        ms = cuda_ms(lambda: knn.nearest_vertex_cuda(q, v, b), 3)
+    pairs = knn_pairs(q, v, b)
+    bytes_ms = (n * 12 + nv * 12 + n * 8 + n * 4) / HBM_BYTES_S * 1e3
+    ops_ms = n * per_pair / rate * 1e3
+    rec = {"shape": [n, nv], "ms": ms, "pairs": pairs,
+           "pairs_share": pairs / (n * nv),
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "pairs_bound_ms": max(bytes_ms, pairs * per_pair / rate * 1e3),
+           "brute_force_bound_ms": max(bytes_ms,
+                                       n * nv * per_pair / rate * 1e3),
+           "plain_ms": None, "library_ms": None}
+    log(f"[12] K1 on the extraction grid {n} x {nv}: {ms:.3f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); pairs {pairs} "
+        f"({100 * rec['pairs_share']:.2f} % of brute force) at "
+        f"{rec['pairs_bound_ms']:.3f} ms, brute force at "
+        f"{rec['brute_force_bound_ms']:.3f} ms")
+    return rec
+
+
+def extraction_on_the_card(dev, tmp, spy, size=512, mesh_n=MESH_N,
+                           n_verts=6890):
+    """Phase 12 (a) and (b): ``extract_thuman_mesh_torch.main`` on the
+    flagship config over a THuman-layout fixture (the seeded weights saved
+    as its checkpoint), in the target frame and with ``--can_flag 1``; each
+    extraction's stage times, counts, ``n_dropped`` and its vertices inside
+    the grid box; then ``render_thuman_mesh_torch.main`` on the two OBJ
+    files (3 cameras, 512^2).  The middle query chunk of each extraction
+    is captured by ``spy``.  Returns (the runs, the posed vertices, launches)."""
+    import os
+    import pathlib
+
+    import numpy as np
+    import torch
+
+    import extract_thuman_mesh_torch
+    import render_thuman_mesh_torch
+    from mpsnerf_torch.data.imageio import decode_png
+    from mpsnerf_torch.models.mps_nerf import MPSNeRF
+    from mpsnerf_torch.train.checkpoint import save_checkpoint
+
+    config = pathlib.Path(__file__).resolve().parent / "configs"
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "thuman", "fixture_F")
+    write_thuman_subject(root, size, 1, {p: 0 for p in range(20)}, n_verts)
+    os.makedirs(os.path.join(tmp, "data"), exist_ok=True)
+    with open(os.path.join(tmp, "data", "THuman_1_human_list.txt"), "w") as f:
+        f.write("fixture_F\n" * 25)
+    base = os.path.join(tmp, "logs")
+    save_checkpoint(base, "THuman_3_view", 1, {
+        "step": 1, "model": seeded_model("cpu").state_dict(),
+        "optimizer": {}})
+    log(f"[12] THuman-layout fixture {size}^2 x 24 cameras, seeded "
+        f"checkpoint: {time.perf_counter() - t0:.1f} s")
+    argv = ["--config", str(config / "canonical_transformer.txt"),
+            "--data_root", root, "--basedir", base, "--mesh_N",
+            str(mesh_n), "--device", str(dev)]
+    cwd = os.getcwd()
+    runs = {}
+    # the middle query chunk (through the body) is kept for (e)
+    middle = -(-mesh_n ** 3 // MESH_CHUNK) // 2
+    try:
+        os.chdir(tmp)  # the loader reads data/ and the CLI writes objs/
+        reset_counts()
+        for can in (0, 1):
+            label = "canonical" if can else "target"
+            t0 = time.perf_counter()
+            with nth_call(spy, f"extraction chunk {middle} ({label})",
+                          MPSNeRF, "query", middle):
+                run = extract_thuman_mesh_torch.main(
+                    argv + ["--can_flag", str(can)])
+            wall = time.perf_counter() - t0
+            lo, hi = run.grid.start, run.grid.start + run.grid.size
+            inside = bool(np.isfinite(run.verts).all()
+                          and (run.verts >= lo - 1e-5).all()
+                          and (run.verts <= hi + 1e-5).all())
+            ok = (run.step == 1 and inside and len(run.tris) > 1000
+                  and os.path.exists(run.obj_path))
+            st = run.stats
+            log(f"[12] (a) extraction {label} {mesh_n}^3 "
+                f"({st['n_points']} points): density queries "
+                f"{st['density_ms']:.1f} ms, K1 mask {st['mask_ms']:.1f} ms, "
+                f"K=5 carve {st['carve_ms']:.1f} ms, marching cubes "
+                f"{st['mc_ms']:.1f} ms; {len(run.verts)} vertices, "
+                f"{len(run.tris)} triangles, n_dropped {run.n_dropped}; "
+                f"CLI {wall:.1f} s in all; checkpoint step {run.step}, "
+                f"vertices finite and inside the grid box {inside}: "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(1)
+            runs[label] = run
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        launches = read_counts()
+        t0 = time.perf_counter()
+        pngs = render_thuman_mesh_torch.main(
+            ["--config", str(config / "canonical_transformer.txt"),
+             "--data_root", root])
+        wall = time.perf_counter() - t0
+        cover = []
+        for path in pngs:
+            with open(path, "rb") as f:
+                img = decode_png(f.read())
+            cover.append(float((img[..., 3] > 0).mean())
+                         if img.shape == (512, 256, 4) else 0.0)
+        ok = len(pngs) == 6 and min(cover) > 0
+        log(f"[12] (b) normal maps: {len(pngs)} RGBA PNGs (2 meshes x 3 "
+            f"cameras, 512^2 cropped to 512x256) in {wall:.1f} s, coverage "
+            f"{min(cover):.3f}-{max(cover):.3f}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(1)
+    finally:
+        os.chdir(cwd)
+    verts = np.load(os.path.join(root, "new_vertices", "0.npy"))
+    return runs, verts.astype(np.float32), launches
+
+
+def animation_on_the_card(dev, item, smpl, can, spy):
+    """Phase 12 (c): ``MeshAnimationRenderer`` on the seeded flagship
+    model, baked at (a)'s canonical mesh with phase 4's serving item as the
+    source; ``render_pose`` at the item's image size (512^2) from its 3
+    cameras, fast and full: ms, hit pixels, sample points, finite pixels.
+    The first bake chunk and the first sample chunk go to ``spy``.
+    Returns the launches."""
+    import numpy as np
+    import torch
+
+    from mpsnerf_torch.geometry import MeshAnimationRenderer
+
+    size = item["img_all"].shape[-1]
+    model = seeded_model(dev)
+    sync = torch.device(dev).type == "cuda"
+    r = MeshAnimationRenderer(model, smpl, can.verts, can.tris, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    with nth_call(spy, "bake chunk 0", r, "_query"):
+        r.bake(item)
+    log(f"[12] (c) bake at {len(can.verts)} canonical vertices: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    for k in range(len(item["K_all"])):  # the item's 3 input cameras
+        for fast in (True, False):
+            t0 = time.perf_counter()
+            if not fast and k == 0:
+                with nth_call(spy, "animation samples chunk 0", r, "_query"):
+                    img = r.render_pose(item, k, size, size, fast=fast)
+            else:
+                img = r.render_pose(item, k, size, size, fast=fast)
+            if sync:
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            st = r.last_pose
+            ok = (bool(np.isfinite(img).all()) and st["n_hit"] > size
+                  and img.shape == (size, size, 3)
+                  and st["n_samples"] == (0 if fast else 11 * st["n_hit"]))
+            log(f"[12] (c) render_pose view {k} {'fast' if fast else 'full'}"
+                f" {size}^2: {ms:.1f} ms, {st['n_hit']} hit pixels, "
+                f"{st['n_samples']} sample points, finite: "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(1)
+    launches = read_counts()
+    del r, model
+    return launches
+
+
+def serving_on_the_card(dev, tmp, item, smpl, camera, spy, spiral_hw=256,
+                        spiral_frames=4, mesh_n=SERVE_MESH_N):
+    """Phase 12 (d): a port bundle of the seeded flagship model served by
+    ``BundleServer`` on 127.0.0.1, port 0, in this process; every route
+    over HTTP, each request's wall ms; /render equal to
+    ``ViewRenderer.render_view`` on the same items, /camera at view 1's
+    camera ``(K, R, T)`` equal to /render, /mesh's triangle count equal to
+    a direct ``extract_density_mesh`` on the bundle's model.  The first
+    /spiral frame's fine pre-pass and first tail tile, and the middle
+    query chunk of /mesh, go to ``spy`` (its hooks are module-level, so
+    they see the server's thread).  Returns the launches."""
+    import io
+    import json as json_
+    import os
+    import pathlib
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from mpsnerf_torch.config import parse_args
+    from mpsnerf_torch.eval import runner
+    from mpsnerf_torch.eval.runner import ViewRenderer
+    from mpsnerf_torch.eval.video import read_avi_index
+    from mpsnerf_torch.geometry import GridSpec, extract_density_mesh
+    from mpsnerf_torch.models.mps_nerf import MPSNeRF
+    from mpsnerf_torch.serve import export_serving_bundle
+    from mpsnerf_torch.serve.server import BundleServer, items_to_npz_bytes
+
+    config = pathlib.Path(__file__).resolve().parent / "configs"
+    args = parse_args(["--config", str(config / "canonical_transformer.txt")])
+    model = seeded_model(dev)
+    clean = {k: v for k, v in item.items()
+             if not k.startswith("_") and k != "body_grid"}
+    out = os.path.join(tmp, "bundle")
+    t0 = time.perf_counter()
+    export_serving_bundle(out, args, model, {int(item["gender"]): smpl},
+                          clean, clean)
+    log(f"[12] (d) bundle exported in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{f} {os.path.getsize(os.path.join(out, f)) / 1e6:.1f}"
+                    f" MB" for f in sorted(os.listdir(out))))
+    srv = BundleServer(out, port=0, device=dev).start()
+    url = "http://%s:%d" % srv.address
+    body = items_to_npz_bytes(clean, clean)
+    cam = items_to_npz_bytes(clean, clean, camera=dict(zip("KRT", camera)))
+    walls = {}
+
+    def request(route, data=None):
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(
+                url + route, data=data), timeout=600) as r:
+            out = r.read()
+        walls[route] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    try:
+        reset_counts()
+        health = json_.loads(request("/healthz"))
+        manifest = json_.loads(request("/manifest"))
+        rendered = np.load(io.BytesIO(request("/render?view=1", body)))
+        camera = np.load(io.BytesIO(request(
+            f"/camera?h={clean['img_all'].shape[-2]}"
+            f"&w={clean['img_all'].shape[-1]}", cam)))
+        # frame 0 of the spiral: its fine pre-pass and its first tail tile
+        with nth_call(spy, "spiral frame 0", runner, "fine_rays_compact"), \
+                nth_call(spy, "spiral frame 0", MPSNeRF, "query"):
+            spiral = np.load(io.BytesIO(request(
+                f"/spiral?frames={spiral_frames}&h={spiral_hw}"
+                f"&w={spiral_hw}", body)))
+        video = request(f"/spiral?frames={spiral_frames}&h={spiral_hw}"
+                        f"&w={spiral_hw}&format=video", body)
+        middle = -(-mesh_n ** 3 // MESH_CHUNK) // 2
+        with nth_call(spy, f"served /mesh chunk {middle}", MPSNeRF, "query",
+                      middle):
+            with np.load(io.BytesIO(request(f"/mesh?n={mesh_n}",
+                                            body))) as z:
+                m_verts, m_tris = z["verts"], z["tris"]
+        anim = np.load(io.BytesIO(request(f"/animate?view=1&n={mesh_n}",
+                                          body)))
+        anim_fast = np.load(io.BytesIO(request(
+            f"/animate?view=1&fast=1&n={mesh_n}", body)))
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        launches = read_counts()
+        served_model = srv.renderer.model
+    finally:
+        srv.stop()
+    with uncounted():
+        live = ViewRenderer(model, lambda g: smpl, n_samples=128,
+                            tile=16384, device=dev)
+        direct = live.render_view(dict(clean), dict(clean), 1)
+        smpl_d, sp, tp, latent = live.device_items(dict(clean), dict(clean))
+        uncompacted = served_model.with_compact_fraction(None)
+        verts = np.asarray(clean["vertices"], np.float32)
+        with torch.no_grad():
+            d_verts, d_tris = extract_density_mesh(
+                lambda p: uncompacted.query(
+                    smpl_d, sp, tp, latent, p, torch.zeros_like(p)).sigma,
+                GridSpec.from_vertices(verts, n=mesh_n), verts, smpl_d.faces,
+                chunk=262144, device=dev)
+    avi = os.path.join(tmp, "spiral.avi")
+    with open(avi, "wb") as f:
+        f.write(video)
+    codec, w, h, n_frames, sizes = read_avi_index(avi)
+    render_err = float(np.abs(rendered - direct).max())
+    camera_err = float(np.abs(camera - rendered).max())
+    hw = clean["img_all"].shape[-1]
+    checks = {
+        "healthz": health["status"] == "ok" and health["has_global"],
+        "manifest": manifest["format"] == "mpsnerf_torch",
+        "render == ViewRenderer (1e-5)": render_err <= 1e-5,
+        "camera == render (1e-5)": camera_err <= 1e-5,
+        "spiral": spiral.shape == (spiral_frames, spiral_hw, spiral_hw, 3)
+        and bool(np.isfinite(spiral).all()),
+        "video": (w, h, n_frames, len(sizes)) == (
+            spiral_hw, spiral_hw, spiral_frames, spiral_frames),
+        "mesh == direct": len(m_tris) == len(d_tris) > 1000
+        and bool(np.isfinite(m_verts).all()),
+        "animate": anim.shape == anim_fast.shape == (hw, hw, 3)
+        and bool(np.isfinite(anim).all() and np.isfinite(anim_fast).all())
+        and (anim.sum(-1) > 0).mean() > 0.01,
+    }
+    log(f"[12] (d) requests, wall ms with HTTP: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    log(f"[12] (d) /render vs ViewRenderer max|diff| {render_err:.3g}, "
+        f"/camera vs /render {camera_err:.3g}, spiral {spiral.shape}, video "
+        f"{codec} {w}x{h} {n_frames} frames, /mesh {len(m_verts)} vertices "
+        f"{len(m_tris)} triangles (direct {len(d_tris)}), /animate hit "
+        f"share {(anim.sum(-1) > 0).mean():.3f}; launches "
+        f"{json.dumps(launches)}; "
+        + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise SystemExit(1)
+    return launches
+
+
+def geometry_and_serving(dev, item, smpl, camera, clock_mhz, per_pair,
+                         size=512, mesh_n=MESH_N, serve_mesh_n=SERVE_MESH_N,
+                         spiral_hw=256):
+    """Phase 12: (a)-(e) above (``camera``: the ``(K, R, T)`` of the
+    item's output view 1).  Returns the launches of each path (``mesh``,
+    ``animate``, ``serve``), the kernels' worst errors and K1's record on
+    the grid.  ``size`` (the fixture's), ``mesh_n``, ``serve_mesh_n`` and
+    ``spiral_hw`` shrink it for a rehearsal on the CPU."""
+    import tempfile
+
+    import torch
+
+    from mpsnerf_torch.geometry import GridSpec
+
+    with tempfile.TemporaryDirectory(prefix="mpsnerf_geometry_") as tmp:
+        with kernel_spy() as spy:
+            runs, verts, mesh_launches = extraction_on_the_card(
+                dev, tmp, spy, size=size, mesh_n=mesh_n)
+            anim_launches = animation_on_the_card(
+                dev, item, smpl, runs["canonical"], spy)
+            serve_launches = serving_on_the_card(
+                dev, tmp, item, smpl, camera, spy, spiral_hw=spiral_hw,
+                mesh_n=serve_mesh_n)
+    paths = {"mesh": mesh_launches, "animate": anim_launches,
+             "serve": serve_launches}
+    ok = all(counts["nearest_vertex"] > 0
+             and counts["grid_sample_patch_fwd"] > 0
+             for counts in paths.values())
+    log(f"[12] K1 and K2 launched on every path: {json.dumps(paths)}: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(1)
+    errs = compare_geometry_inputs(spy.calls)
+    del spy
+    # the carve's 5 cm mask call on the target grid: a 2M-point slice
+    # against the plain version, the whole grid timed
+    q = GridSpec.from_vertices(verts, n=mesh_n).points_on(dev)
+    v = torch.from_numpy(verts).to(dev)
+    mid = q.shape[0] // 2
+    half = min(1 << 20, mid)
+    e, _ = compare_knn(f"{mesh_n}^3 grid mask call, slice",
+                       q[mid - half:mid + half].contiguous(), v)
+    errs["nearest_vertex"] = max(errs["nearest_vertex"], e)
+    grid = knn_grid_record(q, v, clock_mhz, per_pair)
+    del q
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return paths, errs, grid
+
+
 def merge_path(records, launches, errs):
     """Add a path's launches (``launches_<run>``) and the worst errors of
     its comparisons (K2's keyed by latent or RGB) to the kernel records."""
@@ -3362,7 +3796,7 @@ def main(argv=None):
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--stop-after", type=int, default=11,
+    ap.add_argument("--stop-after", type=int, default=12,
                     help="end after this phase (no result lines)")
     stop_after = ap.parse_args(argv).stop_after
 
@@ -3714,6 +4148,17 @@ def main(argv=None):
                          "legacy_view": legacy_view_launches,
                          **cli_launches}, errs)
     log(f"[11] phase in {time.perf_counter() - t0:.0f} s; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+    if stop_after <= 11:
+        return 0
+
+    # ---- 12. geometry and serving at full width
+    t0 = time.perf_counter()
+    geo_launches, errs, grid = geometry_and_serving(
+        dev, item, smpl, ds.cameras[1], clock_mhz, instr["nearest_vertex"])
+    merge_path(records, geo_launches, errs)
+    records[0]["shapes"]["mesh_grid"] = grid
+    log(f"[12] phase in {time.perf_counter() - t0:.0f} s; total "
         f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

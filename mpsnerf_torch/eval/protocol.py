@@ -36,14 +36,18 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
+_PNG_COLOR = {1: 0, 3: 2, 4: 6}  # channels -> PNG colour type
+
+
 def encode_png(img8: np.ndarray) -> bytes:
-    """An 8-bit (H, W, 3) RGB or (H, W) grey image as PNG bytes."""
+    """An 8-bit (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA image as PNG
+    bytes."""
     if img8.dtype != np.uint8 or img8.ndim not in (2, 3) or (
-            img8.ndim == 3 and img8.shape[2] != 3):
-        raise ValueError(f"encode_png takes (H, W) or (H, W, 3) uint8, not "
-                         f"{img8.dtype} {img8.shape}")
+            img8.ndim == 3 and img8.shape[2] not in (3, 4)):
+        raise ValueError(f"encode_png takes (H, W), (H, W, 3) or (H, W, 4) "
+                         f"uint8, not {img8.dtype} {img8.shape}")
     h, w = img8.shape[:2]
-    color = 2 if img8.ndim == 3 else 0
+    color = _PNG_COLOR[img8.shape[2] if img8.ndim == 3 else 1]
     rows = np.ascontiguousarray(img8).reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
     return (b"\x89PNG\r\n\x1a\n"

@@ -185,7 +185,12 @@ class ViewRenderer:
     full-image rays; the box cull keeps only rays that hit the body's box,
     whose share is about twice that, so at 512^2 most chunks overflow and
     render again uncompacted (exact, slower; ``n_overflow_chunks``).
+
+    The state a render derives from an item is cached on the item under
+    ``DERIVED_KEYS``: its device tensors and (the source's) latent.
     """
+
+    DERIVED_KEYS = ("_torch_cache", "_latent_cache")
 
     def __init__(
         self,
@@ -264,7 +269,11 @@ class ViewRenderer:
             return np.asarray(tp_item["mask_at_box_all"][k]).reshape(-1)
         return ray_mask
 
-    def _prep_view(self, sp_item: Dict, tp_item: Dict, k: int, ray_mask):
+    def device_items(self, sp_item: Dict, tp_item: Dict) -> Tuple:
+        """``(smpl, sp, tp, latent)`` on the device for a source and a
+        target item: the body grid and (with a correction field) the
+        sparse-conv plans attached to items that have none, the device
+        tensors and the latent cached on the items."""
         if "body_grid" not in tp_item:
             attach_body_grid(tp_item)
         if self.model.correction_field:
@@ -276,7 +285,10 @@ class ViewRenderer:
         sp = self._device_side(sp_item)
         tp = self._device_side(tp_item)
         smpl = self.smpl_selector(int(sp_item["gender"])).to(self.device)
-        latent = self._latent_for(sp_item, sp)
+        return smpl, sp, tp, self._latent_for(sp_item, sp)
+
+    def _prep_view(self, sp_item: Dict, tp_item: Dict, k: int, ray_mask):
+        smpl, sp, tp, latent = self.device_items(sp_item, tp_item)
         rays, sel, n_total = view_rays(tp_item, k, self.device, ray_mask)
         return smpl, sp, tp, latent, rays, sel, n_total
 
@@ -344,8 +356,23 @@ class ViewRenderer:
         explicit_mask = ray_mask is not None
         ray_mask = self._view_ray_mask(tp_item, k, ray_mask)
         fill = 1.0 if (self.white_bkgd and not explicit_mask) else 0.0
-        smpl, sp, tp, latent, rays, sel, n_total = self._prep_view(
-            sp_item, tp_item, k, ray_mask)
+        return self._start(*self._prep_view(sp_item, tp_item, k, ray_mask),
+                           fill)
+
+    def render_rays(self, sp_item: Dict, tp_item: Dict, rays_o, rays_d,
+                    near, far) -> np.ndarray:
+        """Render arbitrary rays (host (N, 3), (N, 3), (N,), (N,)) of
+        ``tp_item``'s pose conditioned on ``sp_item``: (N, 3) f32 on the
+        host, on the renderer's path (no box cull: every ray runs)."""
+        rays = [torch.from_numpy(np.ascontiguousarray(x, np.float32).reshape(
+            shape)).to(self.device) for x, shape in zip(
+                (rays_o, rays_d, near, far), ((-1, 3), (-1, 3), (-1,), (-1,)))]
+        return self.finish_view(self._start(
+            *self.device_items(sp_item, tp_item), rays, None,
+            rays[0].shape[0], 0.0))
+
+    def _start(self, smpl, sp, tp, latent, rays, sel, n_total, fill
+               ) -> _PendingView:
         n = rays[0].shape[0]
         if n == 0:
             self.last_view = ViewStats(np.zeros(n_total, np.float32),

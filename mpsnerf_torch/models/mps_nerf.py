@@ -317,31 +317,46 @@ class MPSNeRF(nn.Module):
         nn_ids: Optional[torch.Tensor] = None,
         compute_normals: bool = False,
         t_buckets: Optional[VertexBuckets] = None,
+        mode: str = "full",
     ) -> RawOutput:
         """Raw (rgb, sigma) and geometry at world points.  Three branches,
         as in the JAX package: caller-supplied nearest-vertex ids (every
         point in-body), the body-grid cull with compaction (when compaction
         is on and the target has a body grid), or one exact 1-NN over every
         point, compacted unless ``compact_fraction`` is None or
-        ``human_sample`` is off.  ``t_buckets``: the 1-NN buckets of
+        ``human_sample`` is off.  ``mode`` ``"extract_mesh"`` or
+        ``"mesh_animation"`` (the geometry-only query of the mesh
+        extraction and the mesh animation) takes the points as canonical
+        already: no world -> SMPL step, no 5 cm mask, no compaction and no
+        correction field; the canonical 1-NN, the forward LBS to the source
+        and the tail run as in ``"full"``.  ``t_buckets``: the 1-NN buckets of
         ``sp_input["t_vertices"]``; a caller that queries a view tile by
         tile builds them once and passes them, else they are built here,
         once per query (for a CUDA table; a CPU one needs none).  The 3D
         encoder's BatchNorm and the encoder's follow the module's train/
         eval mode."""
+        if mode not in ("full", "extract_mesh", "mesh_animation"):
+            raise ValueError(f"query: mode {mode!r}, not full, extract_mesh "
+                             "or mesh_animation")
         n = world_pts.shape[0]
-        tf_t = PoseTransforms.create(smpl, tp_input["params"])
         tf_s = PoseTransforms.create(smpl, sp_input["params"])
         cplan = None
         n_dropped = torch.zeros((), dtype=torch.int64, device=world_pts.device)
-
-        smpl_query_pts = world_to_smpl(world_pts, tf_t.R, tf_t.Th)
-        q_stop = smpl_query_pts.detach()
+        geometry_only = mode != "full"
+        if not geometry_only:
+            tf_t = PoseTransforms.create(smpl, tp_input["params"])
+            smpl_query_pts = world_to_smpl(world_pts, tf_t.R, tf_t.Th)
+            q_stop = smpl_query_pts.detach()
 
         use_compact = self.compact_fraction is not None and self.human_sample
         capacity = max(1024, min(
             int(np.ceil(n * (self.compact_fraction or 0) / 1024)) * 1024, n))
-        if nn_ids is not None:
+        if geometry_only:
+            # canonical points already: every point runs the tail
+            smpl_query_pts = can_pts = world_pts
+            pts_mask = torch.ones(n, dtype=torch.int32,
+                                  device=world_pts.device)
+        elif nn_ids is not None:
             # the caller ran the exact 5 cm cull: every point is in-body
             pts_mask = torch.ones(n, dtype=torch.int32, device=world_pts.device)
             q_pts, q_ids = smpl_query_pts, nn_ids
@@ -374,14 +389,15 @@ class MPSNeRF(nn.Module):
         if cplan is not None:
             n_dropped = torch.clamp(cplan.n_valid - capacity, min=0)
 
-        can_pts = deform_target_to_canonical(
-            smpl, tf_t, q_pts, q_ids, mean_shape=self.mean_shape)
+        if not geometry_only:
+            can_pts = deform_target_to_canonical(
+                smpl, tf_t, q_pts, q_ids, mean_shape=self.mean_shape)
         t_vertices = sp_input["t_vertices"]
         if t_buckets is None:
             t_buckets = kernel_buckets(t_vertices)
 
         correction_c = None
-        if self.correction_field:
+        if self.correction_field and not geometry_only:
             p3d = self._features_3d(tp_input, q_pts)  # (K, 32)
             if self.correction_style == "instance":
                 fused = self._instance_input(q_pts, tp_input, p3d)
@@ -404,7 +420,7 @@ class MPSNeRF(nn.Module):
             can_pts = can_pts + correction_c
 
         instance = self.correction_field and \
-            self.correction_style == "instance"
+            self.correction_style == "instance" and not geometry_only
 
         def tail(can):
             # canonical 1-NN (no gradient), forward LBS, conditioning, MLP

@@ -21,10 +21,13 @@ table (port of ``mpsnerf_tpu/ops/knn.py``).
 * :func:`nearest_vertex_packed` (with ``_plain`` and ``_cuda``): the
   packed-key 1-NN of the TPU kernels, for the variant probe
   (``mpsnerf_torch/csrc/nearest_vertex_packed.cu``).
+* :func:`knn_points`: the exact K-NN of the mesh carve, plain PyTorch in
+  the JAX package's product form (glue, not a kernel).
 
-All compute d^2 as ``(dx*dx + dy*dy) + dz*dz`` (never the
-``|q|^2 - 2 q.v + |v|^2`` product form); the exact 1-NN keeps the lowest
-vertex id on ties.  The ids carry no gradient.
+The 1-NN functions compute d^2 as ``(dx*dx + dy*dy) + dz*dz`` (never
+the ``|q|^2 - 2 q.v + |v|^2`` product form, which only ``knn_points``
+uses); the exact 1-NN keeps the lowest vertex id on ties.  The ids carry
+no gradient.
 """
 
 from __future__ import annotations
@@ -348,6 +351,41 @@ def nearest_vertex(query: torch.Tensor, verts: torch.Tensor,
     if query.device.type == "cpu" and verts.device.type == "cpu":
         return nearest_vertex_plain(query, verts)
     return nearest_vertex_cuda(query, verts, buckets)
+
+
+# ---- the exact K-NN of the mesh carve -------------------------------------
+
+
+def knn_points(query: torch.Tensor, verts: torch.Tensor, k: int,
+               block: int = 65536):
+    """Exact K-NN ``(d2 (N, K) f32, ids (N, K) int64)``, nearest first:
+    plain PyTorch (no kernel; the JAX package's ``knn_points`` is blocked
+    XLA, not Pallas) in JAX's form, ``|q|^2 - 2 q.v + |v|^2`` over blocks
+    of ``block`` queries, then the K smallest.  Ties in d2 have no fixed
+    order (``torch.topk``); the mesh carve reads only the set.  A block
+    holds ``block x V`` d2 values (1.8 GB for 65,536 x 6890 in fp32), so
+    256 blocks cover a 256^3 grid.  The product ``q.v`` is written as three
+    fp32 products, not a matmul: TF32 must be off for it on the card (it
+    would round the coordinates to 10 mantissa bits), and no TF32 setting
+    reaches these ops."""
+    _check_table("knn_points", verts)
+    if not 1 <= k <= verts.shape[0]:
+        raise ValueError(f"knn_points: k={k} for {verts.shape[0]} vertices")
+    v = verts.float()
+    vv = _d2(v)[None, :]
+    d2s, idss = [], []
+    for s in range(0, query.shape[0], block):
+        q = query[s:s + block].float()
+        qv = q[:, 0:1] * v[:, 0]
+        qv.addcmul_(q[:, 1:2], v[:, 1]).addcmul_(q[:, 2:3], v[:, 2])
+        d2 = qv.mul_(-2.0).add_(_d2(q)[:, None]).add_(vv)
+        best, ids = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+        d2s.append(best)
+        idss.append(ids)
+    if not d2s:
+        return query.new_zeros(0, k), torch.zeros(
+            0, k, dtype=torch.int64, device=query.device)
+    return torch.cat(d2s), torch.cat(idss)
 
 
 # ---- the packed-key 1-NN (the TPU kernels' function) ---------------------

@@ -12,6 +12,7 @@ from mpsnerf_torch.smpl.lbs import (
     PoseTransforms,
     deform_canonical_to_source,
     deform_target_to_canonical,
+    deform_target_to_canonical_with_weights,
     inv3x3,
     posed_vertices,
     smpl_to_world,
@@ -24,6 +25,7 @@ __all__ = [
     "rigid_transforms", "rodrigues", "shape_blend_offsets",
     "transform_params",
     "PoseTransforms", "deform_canonical_to_source",
-    "deform_target_to_canonical", "inv3x3", "posed_vertices",
+    "deform_target_to_canonical",
+    "deform_target_to_canonical_with_weights", "inv3x3", "posed_vertices",
     "smpl_to_world", "world_to_smpl",
 ]

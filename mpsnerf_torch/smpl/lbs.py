@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from mpsnerf_torch.ops.knn import nearest_vertex
 from mpsnerf_torch.smpl.kinematics import (
     big_pose_vector,
     pose_blend_offsets,
@@ -113,6 +114,28 @@ def deform_target_to_canonical(
     A = _blend_A(bweights, tf.A)
     can = _apply(inv3x3(A[:, :3, :3]), query_pts - A[:, :3, 3])
     if mean_shape:
+        can = can - tf.pose_offsets[vert_ids]
+        can = can - tf.shape_offsets[vert_ids]
+    A_b = _blend_A(bweights, tf.A_big)
+    return _apply(A_b[:, :3, :3], can) + A_b[:, :3, 3]
+
+
+def deform_target_to_canonical_with_weights(
+    smpl: SMPLModel,
+    tf: PoseTransforms,
+    query_pts: torch.Tensor,   # (N, 3) target SMPL space
+    bweights: torch.Tensor,    # (N, 24) explicit blend weights
+    mean_shape: bool = False,
+) -> torch.Tensor:
+    """Inverse-LBS warp with caller-given blend weights (the mesh
+    animation interpolates baked per-vertex weights at its ray samples).
+    With ``mean_shape`` the blend offsets come from each point's nearest
+    template vertex (the 1-NN of ``smpl.v_template``)."""
+    A = _blend_A(bweights, tf.A)
+    can = _apply(inv3x3(A[:, :3, :3]), query_pts - A[:, :3, 3])
+    if mean_shape:
+        _, vert_ids = nearest_vertex(query_pts.detach().contiguous(),
+                                     smpl.v_template)
         can = can - tf.pose_offsets[vert_ids]
         can = can - tf.shape_offsets[vert_ids]
     A_b = _blend_A(bweights, tf.A_big)
