@@ -183,7 +183,37 @@ non-zero):
      first served /spiral frame's fine pre-pass and first tail tile and on
      the served /mesh's middle query chunk, and K1 on a
      2,097,152-point slice of the 256^3 grid's mask call (ids and d2
-     equal), with K1 timed on the whole grid (ms, pairs, bound);
+     equal), with K1 timed on the whole grid (ms, pairs, bound) beside
+     ``cdist`` + ``min`` in blocks of 65,536 queries over the whole grid;
+  13. multi-device training and the sharded render (``mpsnerf_torch/
+     parallel``): (a) 4 ranks spawned on the card (``parallel/launch.py``)
+     over gloo (they share it), a (data 2, ray 2) mesh, the flagship
+     widths and the 6890-vertex rig, two items of phase 5's 512^2 scene
+     (one a data row, their 1000 rays a view in the loader's body-first
+     order, 500 a rank by stride), 128 samples; after a warm-up pair, one
+     plain and one smooth ``MeshTrainer`` step from the seeded weights with
+     injected jitter and smooth deltas, against single-process references
+     computed in this process on ray shards sliced here: the loss within
+     1e-5 of the item mean (plain) and the shard mean (smooth), the
+     reduced gradients within 1e-5 of max|g| of the mean over the same
+     ray shards (the plain item mean's gradient gap and this process's
+     repeat logged beside them), terms equal on every rank, parameters
+     bit-equal across the ranks after each step, TF32 off, ``n_dropped``
+     0; ms per step by each rank's CUDA events and the share of its
+     gradient all-reduce; (d) the same ranks render view 1 of phase 4's
+     item (its 132,024 mask-at-box rays in scan order) sharded 4 ways with
+     ``make_sharded_render``'s compact path: pixels within 1e-5 of the
+     single-process ``render_rays_compact``, every rank's ``n_dropped`` 0,
+     ms by each rank's CUDA events; (e) phase 2's comparisons on rank 0's
+     captured inputs of (a)'s plain and smooth step and of (d)'s first
+     tail tile; (c) ``run_nerf_batch_torch.main`` on the flagship config
+     as shipped (``batch_size 2``) with ``--mesh_devices 2`` over phase
+     9's fixture for 2 batch steps: the CLI starts 2 ranks (gloo), both
+     take 48 view-steps, finite logs, rank 0 alone writes the 2
+     checkpoints and one scalar row a batch step, s per batch step; (b) a
+     one-rank NCCL group on the card runs item 0's plain step through
+     ``make_batched_train_step`` and an ``all_reduce``, equal to the
+     single-process step;
   then one ``{"kernels": [...]}`` line: each kernel's record from phase 7
      with its launches on each path (``launches``: phase 5;
      ``launches_serving``: phase 4; ``launches_eval``,
@@ -194,14 +224,15 @@ non-zero):
      ``launches_legacy``, ``launches_legacy_view``,
      ``launches_legacy_cli``, ``launches_legacy_eval``: phase 11;
      ``launches_mesh``, ``launches_animate``, ``launches_serve``: phase
-     12), K2's backward record ``variant_plain_step`` (phase 10 (d)'s
-     times) and K1's ``shapes["mesh_grid"]`` (phase 12 (e));
-  13. the device line, last.
+     12; ``launches_multi_device``, ``launches_sharded_render``: phase 13
+     (a) and (d), summed over the 4 ranks), K2's backward record
+     ``variant_plain_step`` (phase 10 (d)'s times) and K1's
+     ``shapes["mesh_grid"]`` (phase 12 (e));
+  14. the device line, last.
 
 Launch counts are set to 0 just before each path (phases 4, 5, 6, 8, 9,
-10, 11, 12)
-and read just after; launches made to compare or time a kernel do not
-count.
+10, 11, 12, and in every rank of phase 13) and read just after; launches
+made to compare or time a kernel do not count.
 ``--stop-after N`` ends the run after phase N (a short check of a new
 kernel); it then prints no result lines.
 Weights are random, from seed 0, with the density head's bias set to +4 so
@@ -1353,81 +1384,102 @@ def eval_full_width(dev, ds, smpl):
     return out, errs
 
 
-def capture_train_inputs(trainer, smpl, item, tp=None):
-    """The inputs of K1 and of the latent's K2 forward, backward and double
-    backward as one plain and one smooth step on ``item`` (a pair step's
-    source, with ``tp`` its target) give them (real points
-    project onto clustered pixels, unlike the uniform coords of phase 2):
-    K1's two calls of the plain step's last query (the 5 cm mask against
-    the posed vertices, the canonical lookup against ``t_vertices``; with
-    ``n_importance`` the fine pass, at the union of the samples); the
-    latent's forward of each step's last query; K2's backward of the plain
-    step, of the smooth step's inner normal gradients and of its outer
-    backward, with the flags each asked for; the smooth step's first
-    double backward with its flags.  Copied for phase 2's comparison and
-    phase 7's timings."""
-    import torch
+class train_capture:
+    """Inside the block, keeps copies of the inputs of K1 and of the
+    latent's K2 forward, backward and double backward as a plain and a
+    smooth step give them (set ``.smooth`` before each step): K1's two
+    calls of the plain step's last query (the 5 cm mask against the posed
+    vertices, the canonical lookup against ``t_vertices``); the latent's
+    forward of each step's last query; K2's backward of the plain step, of
+    the smooth step's inner normal gradients and of its outer backward,
+    with the flags each asked for; the smooth step's first double backward
+    with its flags.  The launches go on to the kernels.  :meth:`result`
+    gives them in ``compare_captured``'s form."""
 
-    from mpsnerf_torch.ops import grid_sample as gs
-    from mpsnerf_torch.ops import knn
+    NAMES = ("grid_sample_patch_fwd_cuda", "grid_sample_patch_bwd_cuda",
+             "grid_sample_patch_bwd2_cuda")
 
-    step = {"smooth": False}
-    fwd, bwd, bwd2, nn = {}, {}, [], {}
-    wrapped = {"grid_sample_patch_fwd_cuda": gs.grid_sample_patch_fwd_cuda,
-               "grid_sample_patch_bwd_cuda": gs.grid_sample_patch_bwd_cuda,
-               "grid_sample_patch_bwd2_cuda": gs.grid_sample_patch_bwd2_cuda}
-    wrapped_knn = knn.nearest_vertex_cuda
+    def __init__(self):
+        self.smooth = False
+        self.fwd, self.bwd, self.bwd2, self.nn = {}, {}, [], {}
 
-    def keep(tensors):
-        # copies with the same strides: the layouts are part of the inputs
-        return [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
-                                    device=t.device).copy_(t)
-                if isinstance(t, torch.Tensor) else t for t in tensors]
+    def __enter__(self):
+        import torch
 
-    def spy_fwd(image, coords):
-        label = "smooth step" if step["smooth"] else "plain step"
-        if image.shape[1] > 3:
-            fwd[label] = keep((image, coords))
-        elif not step["smooth"]:
-            fwd["plain step rgb"] = keep((image, coords))
-        return wrapped["grid_sample_patch_fwd_cuda"](image, coords)
+        from mpsnerf_torch.ops import grid_sample as gs
+        from mpsnerf_torch.ops import knn
 
-    def spy_bwd(g, image, coords, need_image, need_coords):
-        need = (need_image, need_coords)
-        label = ("plain step" if not step["smooth"] else
-                 "smooth step" if need_image else "smooth step inner")
-        if image.shape[1] > 3 and label not in bwd:
-            bwd[label] = (keep((g, image, coords)), need)
-        return wrapped["grid_sample_patch_bwd_cuda"](g, image, coords, *need)
+        wrapped = {name: getattr(gs, name) for name in self.NAMES}
+        wrapped_knn = knn.nearest_vertex_cuda
+        self.restore = [(gs, n, f) for n, f in wrapped.items()] + [
+            (knn, "nearest_vertex_cuda", wrapped_knn)]
 
-    def spy_bwd2(g, image, coords, *rest):
-        if image.shape[1] > 3 and not bwd2:
-            bwd2.extend(keep((g, image, coords, *rest)))
-        return wrapped["grid_sample_patch_bwd2_cuda"](g, image, coords, *rest)
+        def keep(tensors):
+            # copies with the same strides: the layouts are part of the
+            # inputs
+            return [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                        device=t.device).copy_(t)
+                    if isinstance(t, torch.Tensor) else t for t in tensors]
 
-    def spy_knn(query, verts, buckets=None, pairs=None):
-        if not step["smooth"]:
-            label = "train canonical" if buckets is not None else \
-                "train mask"
-            nn[label] = (query.clone(), verts.clone(), buckets)
-        return wrapped_knn(query, verts, buckets, pairs)
+        def spy_fwd(image, coords):
+            label = "smooth step" if self.smooth else "plain step"
+            if image.shape[1] > 3:
+                self.fwd[label] = keep((image, coords))
+            elif not self.smooth:
+                self.fwd["plain step rgb"] = keep((image, coords))
+            return wrapped["grid_sample_patch_fwd_cuda"](image, coords)
 
-    try:
-        for name, spy in zip(wrapped, (spy_fwd, spy_bwd, spy_bwd2)):
+        def spy_bwd(g, image, coords, need_image, need_coords):
+            need = (need_image, need_coords)
+            label = ("plain step" if not self.smooth else
+                     "smooth step" if need_image else "smooth step inner")
+            if image.shape[1] > 3 and label not in self.bwd:
+                self.bwd[label] = (keep((g, image, coords)), need)
+            return wrapped["grid_sample_patch_bwd_cuda"](g, image, coords,
+                                                         *need)
+
+        def spy_bwd2(g, image, coords, *rest):
+            if image.shape[1] > 3 and not self.bwd2:
+                self.bwd2.extend(keep((g, image, coords, *rest)))
+            return wrapped["grid_sample_patch_bwd2_cuda"](g, image, coords,
+                                                          *rest)
+
+        def spy_knn(query, verts, buckets=None, pairs=None):
+            if not self.smooth:
+                label = "train canonical" if buckets is not None else \
+                    "train mask"
+                self.nn[label] = (query.clone(), verts.clone(), buckets)
+            return wrapped_knn(query, verts, buckets, pairs)
+
+        for name, spy in zip(self.NAMES, (spy_fwd, spy_bwd, spy_bwd2)):
             setattr(gs, name, spy)
         knn.nearest_vertex_cuda = spy_knn
-        with uncounted():
-            for smooth in (False, True):
-                trainer.step += (-trainer.step) % 4 if smooth else \
-                    (1 if trainer.step % 4 == 0 else 0)
-                step["smooth"] = smooth
-                trainer.view_step(smpl, item, item if tp is None else tp,
-                                  trainer.step % 4)
-    finally:
-        for name, fn in wrapped.items():
-            setattr(gs, name, fn)
-        knn.nearest_vertex_cuda = wrapped_knn
-    return {"fwd": fwd, "bwd": bwd, "bwd2": bwd2, "knn": nn}
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.restore:
+            setattr(mod, name, fn)
+
+    def result(self):
+        return {"fwd": self.fwd, "bwd": self.bwd, "bwd2": self.bwd2,
+                "knn": self.nn}
+
+
+def capture_train_inputs(trainer, smpl, item, tp=None):
+    """The inputs of K1 and of the latent's K2 calls (``train_capture``)
+    as one plain and one smooth step on ``item`` (a pair step's source,
+    with ``tp`` its target) give them (real points project onto clustered
+    pixels, unlike the uniform coords of phase 2); with ``n_importance``
+    K1's calls are the fine pass's, at the union of the samples.  Copied
+    for phase 2's comparison and phase 7's timings."""
+    with train_capture() as cap, uncounted():
+        for smooth in (False, True):
+            trainer.step += (-trainer.step) % 4 if smooth else \
+                (1 if trainer.step % 4 == 0 else 0)
+            cap.smooth = smooth
+            trainer.view_step(smpl, item, item if tp is None else tp,
+                              trainer.step % 4)
+    return cap.result()
 
 
 # ---- phase 9: the CLI on a THuman-layout fixture ---------------------------
@@ -1476,6 +1528,29 @@ def write_thuman_subject(root, size, n_frames, frame_of_pose, n_verts):
     ims = [{"ims": [f"{v:02d}/{frame_of_pose.get(p, 0)}.png"
                     for v in range(24)]} for p in range(n_poses)]
     np.save(os.path.join(root, "annots.npy"), {"cams": cams, "ims": ims})
+
+
+def write_thuman_fixture(tmp, size, n_verts, eval_size=None):
+    """Phase 9's fixture under ``tmp``: a training subject at ``size``^2
+    with 2 frames under 20 pose entries (the config's poses_num), with
+    ``eval_size`` a held-out subject (its start pose 20 and the next, and
+    pose 0), and ``data/THuman_1_human_list.txt`` whose first 25 names are
+    the training subject and name 25 the held-out one.  Returns the
+    training subject's root (the CLI's ``--data_root``)."""
+    import os
+
+    root = os.path.join(tmp, "thuman")
+    train_root = os.path.join(root, "fixture_train_F")
+    write_thuman_subject(train_root, size, 2, {p: p % 2 for p in range(20)},
+                         n_verts)
+    if eval_size:
+        write_thuman_subject(os.path.join(root, "fixture_eval_F"), eval_size,
+                             3, {0: 0, 20: 1, 21: 2}, n_verts)
+    os.makedirs(os.path.join(tmp, "data"))
+    with open(os.path.join(tmp, "data", "THuman_1_human_list.txt"),
+              "w") as f:
+        f.write("fixture_train_F\n" * 25 + "fixture_eval_F\n")
+    return train_root
 
 
 class step_timer:
@@ -1562,21 +1637,7 @@ def cli_on_the_card(dev, size=512, eval_size=256, n_verts=6890,
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="mpsnerf_cli_") as tmp:
         t0 = time.perf_counter()
-        all_root = os.path.join(tmp, "thuman")
-        train_root = os.path.join(all_root, "fixture_train_F")
-        eval_root = os.path.join(all_root, "fixture_eval_F")
-        # 20 pose entries (the config's poses_num) over 2 frames; the eval
-        # subject's start pose 20 and the next, and pose 0
-        write_thuman_subject(train_root, size, 2,
-                             {p: p % 2 for p in range(20)}, n_verts)
-        write_thuman_subject(eval_root, eval_size, 3, {0: 0, 20: 1, 21: 2},
-                             n_verts)
-        os.makedirs(os.path.join(tmp, "data"))
-        # the list's first 25 names are the training humans (all this
-        # fixture), name 25 the held-out one
-        with open(os.path.join(tmp, "data", "THuman_1_human_list.txt"),
-                  "w") as f:
-            f.write("fixture_train_F\n" * 25 + "fixture_eval_F\n")
+        train_root = write_thuman_fixture(tmp, size, n_verts, eval_size)
         log(f"[9] THuman-layout fixture: 24 cameras with distortion "
             f"{THUMAN_D}, train subject {size}^2 x 2 frames, held-out "
             f"subject {eval_size}^2 x 3 frames, {n_verts}-vertex rig, PNG; "
@@ -3418,7 +3479,8 @@ def knn_grid_record(q, v, clock_mhz, per_pair):
     """K1 on the whole extraction grid (the carve's 5 cm mask call): ms,
     the pairs it evaluated, its bound, the instruction rate on those
     pairs and on every pair (phase 7's terms; the plain version is held
-    on a slice, and neither it nor ``cdist`` is timed at this size)."""
+    on a slice and not timed at this size), and the library yardstick,
+    ``cdist`` + ``min`` in blocks of 65,536 queries over the whole grid."""
     from mpsnerf_torch.ops import knn
 
     n, nv = q.shape[0], v.shape[0]
@@ -3426,6 +3488,7 @@ def knn_grid_record(q, v, clock_mhz, per_pair):
     rate = FP32_LANES * clock_mhz * 1e6
     with uncounted():
         ms = cuda_ms(lambda: knn.nearest_vertex_cuda(q, v, b), 3)
+        library_ms = cuda_ms(lambda: knn_library(q, v), 1)
     pairs = knn_pairs(q, v, b)
     bytes_ms = (n * 12 + nv * 12 + n * 8 + n * 4) / HBM_BYTES_S * 1e3
     ops_ms = n * per_pair / rate * 1e3
@@ -3436,8 +3499,9 @@ def knn_grid_record(q, v, clock_mhz, per_pair):
            "pairs_bound_ms": max(bytes_ms, pairs * per_pair / rate * 1e3),
            "brute_force_bound_ms": max(bytes_ms,
                                        n * nv * per_pair / rate * 1e3),
-           "plain_ms": None, "library_ms": None}
-    log(f"[12] K1 on the extraction grid {n} x {nv}: {ms:.3f} ms, bound "
+           "plain_ms": None, "library_ms": library_ms}
+    log(f"[12] K1 on the extraction grid {n} x {nv}: {ms:.3f} ms (cdist+min "
+        f"in blocks {library_ms:.1f} ms), bound "
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); pairs {pairs} "
         f"({100 * rec['pairs_share']:.2f} % of brute force) at "
         f"{rec['pairs_bound_ms']:.3f} ms, brute force at "
@@ -3776,6 +3840,604 @@ def geometry_and_serving(dev, item, smpl, camera, clock_mhz, per_pair,
     return paths, errs, grid
 
 
+# ---- phase 13: multi-device training and the sharded render ---------------
+
+MESH_RANKS = 4  # (data 2, ray 2) for training, (1, 4) for the render
+
+
+def _params_digest(model):
+    import hashlib
+
+    h = hashlib.sha1()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tf32_off():
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return not (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32)
+
+
+class _clock:
+    """CUDA events on the card (the host clock on the CPU), in ms."""
+
+    def __init__(self, dev):
+        import torch
+
+        self.cuda = torch.device(dev).type == "cuda"
+
+    def __enter__(self):
+        import torch
+
+        if self.cuda:
+            torch.cuda.synchronize()
+            self.events = [torch.cuda.Event(enable_timing=True)
+                           for _ in range(2)]
+            self.events[0].record()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        if self.cuda:
+            self.events[1].record()
+            torch.cuda.synchronize()
+            self.ms = self.events[0].elapsed_time(self.events[1])
+        else:
+            self.ms = (time.perf_counter() - self.t0) * 1e3
+
+
+def mesh_rank(items, u, delta, serve_item, render_rays, capacity, tile,
+              n_verts):
+    """One rank of phase 13 (a), (d) and (e), spawned on the card (gloo:
+    the ranks share it).  (a) after a plain and a smooth warm-up step, a
+    plain and a smooth ``MeshTrainer`` step on a (data 2, ray 2) mesh, the
+    row's item, this rank's injected ``u`` and ``delta``; (d) ``make_sharded_render`` (compact, ``capacity`` per rank)
+    of a served view on a (1, 4) mesh; both from the seeded weights; launch
+    counts around each; rank 0 keeps the kernels' inputs of both steps and
+    of the render's first tail tile and compares them with the plain
+    versions (e)."""
+    import contextlib
+
+    import torch
+
+    from mpsnerf_torch.data import to_device_input
+    from mpsnerf_torch.models.mps_nerf import MPSNeRF
+    from mpsnerf_torch.parallel.mesh import (
+        DIST, RAY_AXIS, MeshTrainer, make_2d_mesh, make_mesh,
+        make_sharded_render,
+    )
+    from mpsnerf_torch.smpl.model import synthetic_smpl
+    from mpsnerf_torch.train import trainer as trainer_mod
+    from mpsnerf_torch.train.trainer import TrainConfig, train_rays
+
+    dev = torch.device(DIST["device"])
+    on_card = dev.type == "cuda"
+    out = {"rank": DIST["rank"], "backend": DIST["backend"],
+           "tf32_off": _tf32_off()}
+    mesh = make_2d_mesh(2, MESH_RANKS // 2, dev)
+    primary = mesh.rank == 0
+    smpl = synthetic_smpl(n_verts=n_verts, seed=0, device=dev)
+    inp = to_device_input(items[mesh.data_index], dev, rays=True)
+    rays = train_rays(inp, 0, dev)
+    trainer = MeshTrainer(seeded_model(dev), TrainConfig(
+        n_samples=u[0].shape[1]), mesh)
+    # both steps from the seeded weights (the references' weights)
+    init = copy.deepcopy(trainer.model.state_dict())
+
+    # the collectives' share: the step's reduce, synchronised around
+    reduce_ms = []
+    pmean_ = trainer_mod.pmean_
+
+    def timed_pmean_(*a, **k):
+        with _clock(dev) as c:
+            pmean_(*a, **k)
+        reduce_ms.append(c.ms)
+
+    capture = (train_capture() if on_card and primary
+               else contextlib.nullcontext())
+    out["step_ms"], out["reduce_ms"], out["terms"] = [], [], []
+    out["digests"], out["grads"] = [], []
+    trainer_mod.pmean_ = timed_pmean_
+    try:
+        reset_counts()
+        # a plain and a smooth step first (the products' first calls pick
+        # and load their kernels), then the two that are held and timed
+        for smooth in (False, True):
+            trainer.rays_step(
+                smpl, inp, inp, rays, smooth,
+                u=torch.from_numpy(u[mesh.rank]).to(dev),
+                delta=(torch.from_numpy(delta[mesh.rank]).to(dev)
+                       if smooth else None))
+        with capture as cap:
+            for smooth in (False, True):
+                if cap is not None:
+                    cap.smooth = smooth
+                trainer.model.load_state_dict(init)
+                with _clock(dev) as c:
+                    terms, _ = trainer.rays_step(
+                        smpl, inp, inp, rays, smooth,
+                        u=torch.from_numpy(u[mesh.rank]).to(dev),
+                        delta=(torch.from_numpy(delta[mesh.rank]).to(dev)
+                               if smooth else None))
+                out["step_ms"].append(c.ms)
+                out["reduce_ms"].append(reduce_ms[-1])
+                out["terms"].append([float(t) for t in terms])
+                out["digests"].append(_params_digest(trainer.model))
+                if primary:
+                    out["grads"].append(
+                        {n: p.grad.detach().cpu() for n, p in
+                         trainer.model.named_parameters()})
+        out["launches"] = read_counts()
+    finally:
+        trainer_mod.pmean_ = pmean_
+    errs = {}
+    if cap is not None:
+        errs = compare_captured(cap.result(), tag="[13] mesh rank 0 ")
+    del trainer, cap
+
+    # (d) the sharded render of a served view, from the seeded weights
+    model = seeded_model(dev)
+    flat = make_mesh(RAY_AXIS, dev)
+    tp = to_device_input(serve_item, dev)
+    with torch.no_grad():
+        latent = model.encode(tp["img_all"])
+    ro, rd, nr, fr = (torch.from_numpy(a).to(dev) for a in render_rays)
+    render = make_sharded_render(model, flat, u[0].shape[1],
+                                 capacity=capacity, tile=tile)
+    spy = kernel_spy() if on_card and primary else contextlib.nullcontext()
+    reset_counts()
+    with spy as sp:
+        first = (nth_call(sp, "sharded render first tail tile", MPSNeRF,
+                          "query") if sp is not None
+                 else contextlib.nullcontext())
+        with first, _clock(dev) as c:
+            rgb, disp, acc, dropped = render(smpl, tp, tp, latent, ro, rd,
+                                             nr, fr)
+    out["render_launches"] = read_counts()
+    out["render_ms"] = c.ms
+    out["n_dropped"] = dropped.cpu().tolist()
+    if primary:
+        out["render"] = [t.cpu() for t in (rgb, disp, acc)]
+    if sp is not None:
+        for key, e in compare_render_inputs(sp.calls).items():
+            errs[key] = max(errs.get(key, 0.0), e)
+    out["errs"] = errs
+    return out
+
+
+def compare_render_inputs(calls):
+    """Phase 13 (e) on the sharded render's first tail tile: K1's ids and
+    d2 on each call, K2's forward on the latent and the RGB."""
+    err, n_knn, n_fwd, ok_all = {"nearest_vertex": 0.0}, 0, 0, True
+    for stage, name, args in calls:
+        if name == "nearest_vertex_cuda":
+            n_knn += 1
+            e, _ = compare_knn(f"[13] {stage}, call {n_knn}", *args[:3])
+            err["nearest_vertex"] = max(err["nearest_vertex"], e)
+        elif name == "grid_sample_patch_fwd_cuda":
+            n_fwd += 1
+            which = "rgb" if args[0].shape[1] == 3 else "latent"
+            ok, e = compare_fwd(f"[13] {stage} {which}", *args)
+            key = ("grid_sample_patch_fwd", which)
+            err[key] = max(err.get(key, 0.0), e)
+            ok_all &= ok
+    ok_all &= n_knn >= 1 and n_fwd >= 2
+    log(f"[13] captured the sharded render's first tail tile on rank 0: "
+        f"{n_knn} K1 and {n_fwd} K2 forward calls, each against its plain "
+        f"version: {'ok' if ok_all else 'FAIL'}")
+    if not ok_all:
+        raise SystemExit(1)
+    return err
+
+
+def _single_step(model, init, cfg, smpl, inp, rays, u, delta):
+    """The single-process step's loss terms and gradients (no mesh) from
+    the weights ``init``: ``make_loss_fn`` (smooth where ``delta`` is
+    given) and the backward for the parameters."""
+    import torch
+
+    from mpsnerf_torch.train.trainer import make_loss_fn
+
+    dev = rays[0].device
+    model.load_state_dict(init)
+    model.zero_grad(set_to_none=True)
+    total, (terms, _) = make_loss_fn(model, cfg, delta is not None)(
+        smpl, inp, inp, *rays, u=torch.from_numpy(u).to(dev),
+        delta=None if delta is None else torch.from_numpy(delta).to(dev))
+    total.backward(inputs=list(model.parameters()))
+    return ([float(t.detach()) for t in terms],
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()})
+
+
+def _item_u(u, d):
+    """Item ``d``'s jitter on its whole rays: ray index s of its row takes
+    rays s, s + 2, ... with rank ``2 d + s``'s ``u``."""
+    import numpy as np
+
+    full = np.empty((2 * u[0].shape[0], u[0].shape[1]), np.float32)
+    for s in range(2):
+        full[s::2] = u[2 * d + s]
+    return full
+
+
+def _mesh_references(dev, items, u, delta, n_verts, n_samples):
+    """Phase 13 (a)'s single-process references in this process, the ray
+    shards sliced here (ray index s of 2 takes rays s, s + 2, ...): each
+    item's plain loss and gradients on its whole rays; each shard's plain
+    and smooth loss and gradients with its rank's ``u`` and ``delta``;
+    and this process's repeat of item 0's first shard's two steps, their
+    gradients against the first run's (``_grad_err``)."""
+    import torch
+
+    from mpsnerf_torch.data import to_device_input
+    from mpsnerf_torch.smpl.model import synthetic_smpl
+    from mpsnerf_torch.train.trainer import TrainConfig, train_rays
+
+    cfg = TrainConfig(n_samples=n_samples)
+    smpl = synthetic_smpl(n_verts=n_verts, seed=0, device=dev)
+    base = seeded_model(dev)
+    init = copy.deepcopy(base.state_dict())
+    item_plain, plain, smooth = [], [], []
+
+    def run(inp, rays, uu, dd):
+        return _single_step(base, init, cfg, smpl, inp, rays, uu, dd)
+
+    with uncounted():
+        for d, item in enumerate(items):
+            inp = to_device_input(item, dev, rays=True)
+            rays = train_rays(inp, 0, dev)
+            item_plain.append(run(inp, rays, _item_u(u, d), None))
+            for s in range(2):
+                shard = [r[s::2] for r in rays]
+                plain.append(run(inp, shard, u[2 * d + s], None))
+                smooth.append(run(inp, shard, u[2 * d + s],
+                                  delta[2 * d + s]))
+                if d == 0 and s == 0:
+                    # the card's own spread: the same two steps again
+                    again = (run(inp, shard, u[0], None),
+                             run(inp, shard, u[0], delta[0]))
+    noise = ["%.3g" % _grad_err(a[1], b[1])[0]
+             for a, b in zip(again, (plain[0], smooth[0]))]
+    del base
+    return item_plain, plain, smooth, noise
+
+
+def _mean_ref(refs):
+    import numpy as np
+
+    terms = np.mean([t for t, _ in refs], axis=0)
+    grads = {n: sum(g[n] for _, g in refs) / len(refs) for n in refs[0][1]}
+    return terms, grads
+
+
+def _grad_err(got, want):
+    """``(max|got - want| / max|want|, both over every parameter; the worst
+    tensor's own ratio to its max |want|, and its name)``.  The first is
+    the gate: a tensor whose gradient is near 0 everywhere (the first MLP
+    layers behind the density bias) moves by the card's fp32 rounding far
+    more than its own max."""
+    diff = {n: float((got[n].to(want[n].device) - want[n]).abs().max())
+            for n in want}
+    top = {n: max(float(want[n].abs().max()), 1e-30) for n in want}
+    worst = max(want, key=lambda n: diff[n] / top[n])
+    return (max(diff.values()) / max(top.values()),
+            diff[worst] / top[worst], worst)
+
+
+def nccl_one_rank(dev, item, u_full, want_terms, want_grads, n_verts):
+    """Phase 13 (b): a one-rank NCCL group on this process's card runs the
+    same plain step (``make_batched_train_step`` on a (1, 1) mesh) on item
+    0, and an ``all_reduce``; the step equals the single-process one."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from mpsnerf_torch.data import to_device_input
+    from mpsnerf_torch.parallel.mesh import (
+        DIST, initialize_distributed, make_2d_mesh, make_batched_train_step,
+    )
+    from mpsnerf_torch.smpl.model import synthetic_smpl
+    from mpsnerf_torch.train.trainer import TrainConfig, train_rays
+
+    store = dist.TCPStore("127.0.0.1", 0, None, True,
+                          datetime.timedelta(seconds=120),
+                          wait_for_workers=False)
+    initialize_distributed(num_processes=1, process_id=0,
+                           device=str(torch.device(dev).type), store=store,
+                           timeout_s=120)
+    try:
+        backend = DIST["backend"]
+        mesh = make_2d_mesh(1, 1, dev)
+        step = make_batched_train_step(seeded_model(dev), TrainConfig(
+            n_samples=u_full.shape[1]), mesh)
+        inp = to_device_input(item, dev, rays=True)
+        smpl = synthetic_smpl(n_verts=n_verts, seed=0, device=dev)
+        with uncounted():
+            terms, _ = step(smpl, inp, inp, *train_rays(inp, 0, dev),
+                            u=torch.from_numpy(u_full).to(dev))
+        grads = {n: p.grad for n, p in
+                 step.trainer.model.named_parameters()}
+        x = torch.arange(8.0, device=dev)
+        dist.all_reduce(x)
+        reduced = bool(torch.equal(x.cpu(), torch.arange(8.0)))
+    finally:
+        dist.destroy_process_group()
+    terr = max(abs(a - float(b)) for a, b in zip(want_terms, terms))
+    gerr, _, _ = _grad_err(grads, want_grads)
+    ok = (backend == ("nccl" if torch.device(dev).type == "cuda" else "gloo")
+          and terr <= 1e-5 and gerr <= 1e-5 and reduced)
+    log(f"[13] (b) one-rank {backend} group on {dev}: the plain step on item "
+        f"0, loss {float(terms.total):.6f}, max|term diff| {terr:.3g}, "
+        f"max|grad diff| / max|grad| {gerr:.3g} against the single-process "
+        f"step; all_reduce {reduced}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(1)
+
+
+def mesh_cli(dev, size=512, n_verts=6890, overrides=()):
+    """Phase 13 (c): ``run_nerf_batch_torch.main`` on the flagship config
+    as shipped (``batch_size 2``) with ``--mesh_devices 2`` over phase 9's
+    THuman-layout fixture, 2 batch steps (an item's 24 views each): the
+    CLI starts the 2 ranks (gloo, sharing the card); both take the 48
+    view-steps with the mesh's averaged logs, finite, nothing dropped; rank
+    0 alone writes the 2 checkpoints and the scalars (one row a batch
+    step: another writer would add rows); the second batch step's seconds
+    between the scalars' rows."""
+    import json as json_mod
+    import math
+    import os
+    import pathlib
+    import tempfile
+
+    import torch
+
+    import run_nerf_batch_torch
+    from mpsnerf_torch.parallel.mesh import pick_backend
+
+    config = pathlib.Path(__file__).resolve().parent / "configs"
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="mpsnerf_mesh_cli_") as tmp:
+        t0 = time.perf_counter()
+        train_root = write_thuman_fixture(tmp, size, n_verts)
+        fixture_s = time.perf_counter() - t0
+        base = os.path.join(tmp, "logs")
+        try:
+            os.chdir(tmp)  # the loaders read data/ from the working dir
+            t0 = time.perf_counter()
+            run = run_nerf_batch_torch.main([
+                "--config", str(config / "canonical_transformer.txt"),
+                "--data_root", train_root, "--mesh_devices", "2",
+                "--basedir", base, "--N_iteration", "47", "--i_print",
+                "24", "--i_weights", "24", "--i_testset", "1000000",
+                "--device", str(torch_type(dev)), *overrides])
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        ranks = run.ranks
+        exp = run.args.expname
+        ckpts = sorted(os.listdir(os.path.join(base, exp, "checkpoints")))
+        with open(os.path.join(base, "summaries", exp,
+                               "scalars.jsonl")) as f:
+            rows = [json_mod.loads(x) for x in f]
+        finite = all(math.isfinite(v) for r in ranks for lg in r["logs"]
+                     for v in lg.values())
+        backend = pick_backend(torch.device(dev), 2)[0]
+        ok = (len(ranks) == 2 and run.args.batch_size == 2
+              and [(r["rank"], r["data_index"], r["ray_index"])
+                   for r in ranks] == [(0, 0, 0), (1, 1, 0)]
+              and all(r["backend"] == backend for r in ranks)
+              and all(r["global_step"] == 48 for r in ranks)
+              and ranks[0]["logs"] == ranks[1]["logs"]
+              and ckpts == ["000024", "000048"]
+              and [r["step"] for r in rows] == [24, 48]
+              and finite
+              and max(lg["n_dropped"] for lg in ranks[0]["logs"]) == 0)
+        step_s = rows[-1]["time"] - rows[0]["time"]
+        log(f"[13] (c) CLI, flagship config as shipped (batch_size 2), "
+            f"--mesh_devices 2 (data 2, ray 1) over {ranks[0]['backend']}: "
+            f"fixture {size}^2 written in {fixture_s:.1f} s; {wall:.1f} s "
+            f"wall (the ranks' start, set-up and 2 batch steps); the second "
+            f"batch step {step_s:.2f} s (between rank 0's scalar rows); "
+            f"item losses {[round(lg['loss'], 5) for lg in ranks[0]['logs']]}"
+            f"; checkpoints {ckpts}, scalar rows at steps "
+            f"{[r['step'] for r in rows]}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(1)
+
+
+def torch_type(dev):
+    import torch
+
+    return torch.device(dev).type
+
+
+def multi_device(dev, serve_item, size=512, n_verts=6890, n_rays=1000,
+                 n_samples=128, tile=16384, cli_size=512, cli_overrides=()):
+    """Phase 13: (a) 4 ranks on the card over gloo as a (data 2, ray 2)
+    mesh, two items of phase 5's scene (one a row, in the loader's
+    body-first ray order; the ranks shard them by stride), ``n_rays`` a
+    view, one plain and one smooth step with injected ``u`` and smooth
+    deltas, against references computed in this process on shards sliced
+    here: the losses against the item mean (plain) and the shard mean
+    (smooth) to 1e-5, the reduced gradients within 1e-5 of max |g| of the
+    shard mean, parameters bit-equal across the ranks, TF32 off, step ms
+    and the collectives' share by CUDA events in every rank; (d) the same
+    ranks render a served view of ``serve_item`` (its mask-at-box rays in
+    scan order) sharded 4 ways on the compact path, equal
+    to the single-process ``render_rays_compact`` within 1e-5, every
+    rank's ``n_dropped`` 0; (e) rank 0's kernel comparisons on the steps'
+    and the render's first tail tile's inputs; (c) the CLI with
+    ``--mesh_devices 2``; (b) a one-rank NCCL group.  Returns the launches
+    (summed over the ranks) and the kernels' worst errors."""
+    import numpy as np
+    import torch
+
+    from mpsnerf_torch.data import (
+        HOST_ONLY_KEYS, RAY_KEYS, attach_body_grid, to_device_input,
+    )
+    from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
+    from mpsnerf_torch.eval.runner import view_rays
+    from mpsnerf_torch.parallel.launch import Ranks
+    from mpsnerf_torch.renderer.render import (
+        plan_rays_compact, render_rays_compact,
+    )
+    from mpsnerf_torch.smpl.model import synthetic_smpl
+
+    on_card = torch_type(dev) == "cuda"
+    t0 = time.perf_counter()
+    ds = SyntheticHumanDataset(n_poses=1, n_cameras=4, image_size=size,
+                               n_verts=n_verts, split="train", n_rays=n_rays)
+    items = [ds.get_item(0, instance_idx=0) for _ in range(2)]
+    rng = np.random.default_rng(13)
+    shard = n_rays // 2
+    u = [rng.uniform(size=(shard, n_samples)).astype(np.float32)
+         for _ in range(MESH_RANKS)]
+    delta = [(0.01 * rng.normal(size=(shard * n_samples, 3)))
+             .astype(np.float32) for _ in range(MESH_RANKS)]
+    # what the ranks need of the items (their device inputs)
+    items = [{k: v for k, v in it.items()
+              if k not in HOST_ONLY_KEYS or k in RAY_KEYS} for it in items]
+    # the served view: view 1's mask-at-box rays in scan order, cut to a
+    # multiple of 4
+    serve = attach_body_grid(copy.copy(serve_item))
+    sel = [np.asarray(x) for x in view_rays(
+        serve, 1, "cpu", serve["mask_at_box_all"][1])[0]]
+    keep = sel[0].shape[0] // MESH_RANKS * MESH_RANKS
+    render_rays = [np.ascontiguousarray(x[:keep]) for x in sel]
+    smpl = synthetic_smpl(n_verts=n_verts, seed=0, device=dev)
+    tp = to_device_input(serve, dev)
+    r_rays = [torch.from_numpy(x).to(dev) for x in render_rays]
+    with uncounted():
+        n_cand = [int(plan_rays_compact(smpl, tp, *(x[i::MESH_RANKS]
+                                                    for x in r_rays),
+                                        n_samples).n_valid)
+                  for i in range(MESH_RANKS)]
+    capacity = -(-max(n_cand) // tile) * tile
+    log(f"[13] scene: 2 items of phase 5's scene ({size}^2, {n_verts} "
+        f"verts, {n_rays} rays a view), served view 1: "
+        f"{r_rays[0].shape[0]} mask-at-box rays, candidates per shard "
+        f"{n_cand}, capacity {capacity} a rank; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (a), (d), (e) on 4 ranks; the references here meanwhile
+    t0 = time.perf_counter()
+    ranks = Ranks(mesh_rank, MESH_RANKS, (
+        items, u, delta, {k: v for k, v in serve.items()
+                          if k not in HOST_ONLY_KEYS},
+        render_rays, capacity, tile, n_verts),
+        device=torch_type(dev), timeout_s=600)
+    item_refs, plain_refs, smooth_refs, noise = _mesh_references(
+        dev, items, u, delta, n_verts, n_samples)
+    ref_s = time.perf_counter() - t0
+    results = ranks.wait(600)
+    log(f"[13] 4 ranks done {time.perf_counter() - t0:.1f} s after their "
+        f"start (the single-process references took {ref_s:.1f} s of it)")
+    # the single-process render, the card to itself
+    with uncounted(), torch.no_grad():
+        model = seeded_model(dev)
+        latent = model.encode(tp["img_all"])
+        with _clock(dev) as c:
+            want = render_rays_compact(
+                model, smpl, tp, tp, latent, *r_rays, n_samples,
+                capacity=-(-sum(n_cand) // tile) * tile, tile=tile)
+        single_render_ms = c.ms
+        want = [t.cpu() for t in want]
+    del model, latent
+
+    # (a) the steps, against the single-process references of this
+    # process on shards sliced here: the loss against the item mean (plain,
+    # the items' whole rays) or the shard mean (smooth); the gradients
+    # against the mean over the same ray shards, with the plain step's item
+    # mean beside it (a 1000-row sum against two 500-row ones: the
+    # products' fp32 order moves it by ~1e-5 of max|g|)
+    ok_all = True
+    item_terms, item_grads = _mean_ref(item_refs)
+    for i, (name, refs) in enumerate((("plain", plain_refs),
+                                      ("smooth", smooth_refs))):
+        shard_terms, grads = _mean_ref(refs)
+        terms = item_terms if i == 0 else shard_terms
+        got = [r["terms"][i] for r in results]
+        same = all(g == got[0] for g in got)
+        terr = float(np.max(np.abs(np.asarray(got[0]) - terms)))
+        gerr, tensor_err, worst = _grad_err(results[0]["grads"][i], grads)
+        item_gerr = _grad_err(results[0]["grads"][i], item_grads)[0]
+        ms = [round(r["step_ms"][i], 1) for r in results]
+        share = [round(100 * r["reduce_ms"][i] / r["step_ms"][i], 1)
+                 for r in results]
+        ok = same and terr <= 1e-5 and gerr <= 1e-5 and got[0][-1] == 0
+        ok_all &= ok
+        log(f"[13] (a) {name} mesh step: loss {got[0][0]:.6f} (the "
+            f"single-process {'item' if i == 0 else 'shard'} mean "
+            f"{terms[0]:.6f}), max|term diff| {terr:.3g}, max|grad diff| / "
+            f"max|grad| to the shard mean {gerr:.3g} (the worst tensor to "
+            f"its own max {tensor_err:.3g}, {worst})"
+            + (f", to the item mean {item_gerr:.3g}" if i == 0 else "")
+            + f"; this process's repeat {noise[i]}; n_dropped "
+            f"{got[0][-1]:g}, terms equal on every rank {same}; ms per step "
+            f"by each rank's CUDA events {ms}, of which the reduce {share} "
+            f"%: {'ok' if ok else 'FAIL'}")
+    digests = [r["digests"] for r in results]
+    ok = (all(d == digests[0] for d in digests)
+          and digests[0][0] != digests[0][1]
+          and all(r["tf32_off"] for r in results)
+          and {r["backend"] for r in results} == {"gloo"})
+    ok_all &= ok
+    log(f"[13] (a) parameters bit-equal on the 4 ranks after each step "
+        f"{all(d == digests[0] for d in digests)}; TF32 off on every rank "
+        f"{all(r['tf32_off'] for r in results)}; backend "
+        f"{sorted({r['backend'] for r in results})}: "
+        f"{'ok' if ok else 'FAIL'}")
+    need = [k for k in KERNEL_NAMES if k != "nearest_vertex_packed"]
+    steps_launched = {k: sum(r["launches"][k] for r in results)
+                      for k in results[0]["launches"]}
+    render_launched = {k: sum(r["render_launches"][k] for r in results)
+                       for k in results[0]["render_launches"]}
+    ok = not on_card or (
+        all(r["launches"][k] > 0 for r in results for k in need)
+        and all(r["render_launches"][k] > 0 for r in results for k in (
+            "nearest_vertex", "grid_sample_patch_fwd")))
+    ok_all &= ok
+    log(f"[13] launches on the steps (4 ranks) {json.dumps(steps_launched)}; "
+        f"on the render {json.dumps(render_launched)}; every kernel of each "
+        f"path on every rank: {'ok' if ok else 'FAIL'}")
+
+    # (d) the render
+    got = results[0]["render"]
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want[:3]))
+    nd = [r["n_dropped"] for r in results]
+    ok = (err <= 1e-5 and all(x == [0.0] * MESH_RANKS for x in nd)
+          and int(want[3]) == 0 and bool(np.isfinite(got[0]).all())
+          and float((got[2] > 0.5).float().mean()) > 0.01)
+    ok_all &= ok
+    r_ms = [round(r["render_ms"], 1) for r in results]
+    log(f"[13] (d) sharded render, compact path, {r_rays[0].shape[0]} rays "
+        f"of a {size}^2 view on 4 ranks: max|diff| to the single-process "
+        f"render_rays_compact {err:.3g}, n_dropped per rank {nd[0]}, acc > "
+        f"0.5 on {100 * float((got[2] > 0.5).float().mean()):.1f} % of the "
+        f"rays; ms by each rank's CUDA events {r_ms} (single process "
+        f"{single_render_ms:.1f}): {'ok' if ok else 'FAIL'}")
+    if not ok_all:
+        raise SystemExit(1)
+    errs = results[0]["errs"]
+
+    # (c) the CLI, then (b) the one-rank NCCL group
+    mesh_cli(dev, cli_size, overrides=cli_overrides)
+    nccl_one_rank(dev, items[0], _item_u(u, 0), item_refs[0][0],
+                  item_refs[0][1], n_verts)
+    return ({"multi_device": steps_launched,
+             "sharded_render": render_launched}, errs)
+
+
 def merge_path(records, launches, errs):
     """Add a path's launches (``launches_<run>``) and the worst errors of
     its comparisons (K2's keyed by latent or RGB) to the kernel records."""
@@ -3796,7 +4458,7 @@ def main(argv=None):
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--stop-after", type=int, default=12,
+    ap.add_argument("--stop-after", type=int, default=13,
                     help="end after this phase (no result lines)")
     stop_after = ap.parse_args(argv).stop_after
 
@@ -4159,6 +4821,14 @@ def main(argv=None):
     merge_path(records, geo_launches, errs)
     records[0]["shapes"]["mesh_grid"] = grid
     log(f"[12] phase in {time.perf_counter() - t0:.0f} s; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+    if stop_after <= 12:
+        return 0
+
+    # ---- 13. multi-device training and the sharded render
+    t0 = time.perf_counter()
+    merge_path(records, *multi_device(dev, item))
+    log(f"[13] phase in {time.perf_counter() - t0:.0f} s; total "
         f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

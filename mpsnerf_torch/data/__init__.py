@@ -48,7 +48,12 @@ def attach_spconv_plan(item: Dict, canonical: bool = False) -> Dict:
 def to_device_input(item: Dict, device="cuda", rays: bool = False) -> Dict:
     """Host item -> tensors on ``device`` (nested params and the body grid
     included; host-only stacks and ``_``-prefixed caches skipped, except
-    the per-view ray stacks when ``rays``, as the trainer reads them)."""
+    the per-view ray stacks when ``rays``, as the trainer reads them).
+    Arrays arrive in C order whatever their host strides (a loader's
+    images are often transposed views): an item then computes the same
+    on every rank of a mesh, where it travels as a pickle, and in the
+    process that loaded it (the convolutions pick other kernels, with
+    other rounding, for other strides)."""
     out = {}
     for k, v in item.items():
         if k.startswith("_") or (k in HOST_ONLY_KEYS
@@ -59,10 +64,11 @@ def to_device_input(item: Dict, device="cuda", rays: bool = False) -> Dict:
         elif isinstance(v, SparseConvPlan):
             out[k] = plan_to(v, device)
         elif isinstance(v, dict):
-            out[k] = {kk: torch.as_tensor(np.array(vv), device=device)
+            out[k] = {kk: torch.as_tensor(np.array(vv, order="C"),
+                                          device=device)
                       for kk, vv in v.items()}
         else:
-            out[k] = torch.as_tensor(np.array(v), device=device)
+            out[k] = torch.as_tensor(np.array(v, order="C"), device=device)
     return out
 
 

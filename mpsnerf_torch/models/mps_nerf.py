@@ -108,8 +108,9 @@ class MPSNeRF(nn.Module):
     points (train batches run ~35-42 % in-body samples, hence 0.5; eval
     renders use tighter fractions, see ``eval/runner.py``).  None runs the
     tail on every point, uncompacted (exact at any in-body share).
-    ``bn_axis_name`` (the sharded trainer's cross-replica BatchNorm) is not
-    ported: anything but None raises."""
+    ``bn_axis_name``: the 2D encoder's BatchNorm averages its train-mode
+    statistics over that axis of the bound mesh (cross-replica BatchNorm,
+    ``models/resnet.py``); a train-mode encode outside a mesh raises."""
 
     def __init__(
         self,
@@ -135,11 +136,6 @@ class MPSNeRF(nn.Module):
         compact_fraction: Optional[float] = 0.5,
     ):
         super().__init__()
-        if bn_axis_name is not None:
-            raise NotImplementedError(
-                f"bn_axis_name {bn_axis_name!r}: cross-replica BatchNorm "
-                "belongs to the sharded trainer, not ported (ROADMAP.md "
-                "item 8)")
         if correction_style not in ("aggregate", "instance"):
             raise ValueError(f"correction_style {correction_style!r}: "
                              "aggregate or instance")
@@ -163,7 +159,7 @@ class MPSNeRF(nn.Module):
         self._cdt = cdt
         instance = self.correction_field and correction_style == "instance"
 
-        self.encoder_2d = SpatialEncoder(encoder_layers)
+        self.encoder_2d = SpatialEncoder(encoder_layers, bn_axis_name)
         lat_ch = self.encoder_2d.latent_channels
         feat_ch = lat_ch + (pe_dim(4) if self.append_rgb else 0)
         if self.use_transformer:

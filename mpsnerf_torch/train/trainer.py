@@ -23,6 +23,11 @@ Randomness is explicit: the stratified jitter ``u``, the importance draws
 ``u_imp`` and the smooth delta are drawn from the trainer's
 ``torch.Generator``, or injected by the caller (the parity tests hand in
 the JAX package's own draws).
+
+With ``axis_name`` (JAX's hook, for a step that runs as one rank of a
+mesh, ``parallel/mesh.py``) the gradients, the loss terms and the moved
+BatchNorm statistics are averaged over that axis between the backward
+and Adam; without it the step is the single-device one.
 """
 
 from __future__ import annotations
@@ -37,9 +42,14 @@ import torch
 
 from mpsnerf_torch.models.mps_nerf import MPSNeRF, RawOutput
 from mpsnerf_torch.ops.composite import composite_rays
+from mpsnerf_torch.parallel.collectives import AxisName, pmean_
 from mpsnerf_torch.renderer.render import importance_z, query_rays, z_ladder
 from mpsnerf_torch.smpl.model import SMPLModel
 from mpsnerf_torch.train.losses import LossTerms, compute_losses, mse2psnr
+
+
+# the BatchNorm statistics (flax's ``batch_stats``) among a model's buffers
+STAT_BUFFERS = ("running_mean", "running_var")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +182,27 @@ def summarize_item_logs(logs: List[Tuple[LossTerms, torch.Tensor]],
     return out
 
 
+def pmean_step(axis_name: AxisName, params: List[torch.Tensor],
+               terms: LossTerms, stats: List[torch.Tensor]) -> LossTerms:
+    """JAX's ``pmean`` over ``axis_name`` of a step's gradients, loss
+    terms and moved BatchNorm statistics (``mpsnerf_tpu/train/trainer.py:
+    158-165``), in place, with a few bucketed ``all_reduce`` calls.  A
+    parameter without a gradient on any rank keeps none (Adam skips it, as
+    on one device); one without a gradient on some ranks counts zeros
+    there, as JAX's dense gradients do.  Returns the averaged terms."""
+    has = torch.tensor([p.grad is not None for p in params],
+                       dtype=torch.float32, device=params[0].device)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    vec = torch.stack([t.to(torch.float32) for t in terms])
+    pmean_([p.grad for p in params] + list(stats) + [vec, has], axis_name)
+    for p, h in zip(params, has.tolist()):
+        if h == 0:
+            p.grad = None
+    return LossTerms(*vec.unbind(0))
+
+
 def train_rays(tp_input: Dict, k: int, device):
     """View ``k``'s training rays from the item's stacks (numpy arrays or
     tensors): ``(rays_o, rays_d, near, far, target_rgb, bkgd_msk)``."""
@@ -189,12 +220,16 @@ class Trainer:
     after :meth:`restore` (the reference's resume)."""
 
     def __init__(self, model: MPSNeRF, cfg: TrainConfig, device="cuda",
-                 start_step: int = 0, seed: int = 0):
+                 start_step: int = 0, seed: int = 0,
+                 axis_name: Optional[AxisName] = None):
         self.device = torch.device(device)
         self.model = model.to(self.device).train()
         self.cfg = cfg
         self.step = start_step
+        self.axis_name = axis_name
         self.params = list(self.model.parameters())
+        self.stats = [b for name, b in self.model.named_buffers()
+                      if name.rsplit(".", 1)[-1] in STAT_BUFFERS]
         self.optimizer = make_optimizer(self.model, cfg)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -214,8 +249,17 @@ class Trainer:
                   u=None, delta=None):
         """One optimizer step on output view ``k``; returns the detached
         ``(LossTerms, psnr)``."""
-        smooth = self.smooth_now()
-        rays = train_rays(tp_input, k, self.device)
+        return self.rays_step(smpl, sp_input, tp_input,
+                              train_rays(tp_input, k, self.device),
+                              self.smooth_now(), u, delta)
+
+    def rays_step(self, smpl: SMPLModel, sp_input, tp_input, rays, smooth,
+                  u=None, delta=None):
+        """One optimizer step on ``rays`` (``train_rays``' six tensors),
+        with the smooth loss or without.  With ``axis_name`` the step
+        averages the gradients, the terms and the BatchNorm statistics
+        over that axis of the bound mesh (:func:`pmean_step`) between the
+        backward and Adam."""
         self.optimizer.zero_grad(set_to_none=True)
         total, (terms, _) = self._loss[smooth](
             smpl, sp_input, tp_input, *rays, u=u, delta=delta,
@@ -223,12 +267,14 @@ class Trainer:
         # for the parameters only: no gradient of the canonical points (a
         # leaf of the smooth step's normal) is computed, e.g. in K2
         total.backward(inputs=self.params)
+        terms = LossTerms(*(t.detach() for t in terms))
+        if self.axis_name is not None:
+            terms = pmean_step(self.axis_name, self.params, terms, self.stats)
         lr = lr_at_step(self.cfg, self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
         self.step += 1
-        terms = LossTerms(*(t.detach() for t in terms))
         return terms, mse2psnr(torch.clamp(terms.img_raw, min=1e-10))
 
     def train_item(self, smpl: SMPLModel, sp_input, tp_input) -> Dict:

@@ -3,7 +3,7 @@
 step for step the JAX package's ``run_nerf_batch.py``.
 
     python run_nerf_batch_torch.py --config configs/canonical_transformer.txt --batch_size 1
-    python run_nerf_batch_torch.py --config configs/h36m.txt --batch_size 1
+    python run_nerf_batch_torch.py --config configs/h36m.txt --mesh_devices 2
     python run_nerf_batch_torch.py --config configs/synthetic_smoke.txt --device cpu
     python run_nerf_batch_torch.py --config ... --save_weights 0   # eval only
 
@@ -30,14 +30,31 @@ test (``run_legacy_test``: poses 13 and 14 of the test split, every 12th
 view, side-by-side PNGs and the sweep videos).
 
 ``--device`` (default ``cuda``) picks the device; there is no fallback to
-the CPU.  One item at a time on one device: ``--batch_size`` > 1 and
-``--mesh_devices`` raise.
+the CPU.
+
+``--mesh_devices N --batch_size B`` trains on a (data = B, ray = N / B)
+mesh of N ranks (``mpsnerf_torch/parallel/mesh.py:MeshTrainer``): every
+view-step takes one Adam step on the mean gradient of B items, each
+item's rays sharded over its row's N / B ranks (N must divide by B; B > 1
+alone makes N the number of GPUs, or B where that is fewer).  Without
+torchrun's environment the CLI starts the N ranks on this host itself;
+under ``torchrun --nproc_per_node N`` each process is a rank of the group
+that is there.  A rank takes ``cuda:{local_rank % device_count}``: ranks
+that share a GPU run over gloo, ranks with a GPU each over NCCL (printed
+at start).  Rank 0 draws the items in the sampler's order (the
+single-process stream) and sends each data row its item; it alone writes
+``args.txt``, checkpoints and scalars and runs the eval.  Every rank
+reloads the newest checkpoint.  A rank that fails ends the run with an
+error.
+
+    python run_nerf_batch_torch.py --config configs/canonical_transformer.txt --mesh_devices 2
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import time
 import types
 
@@ -51,6 +68,27 @@ def _parser():
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (cpu for the CPU)")
     return p
+
+
+def mesh_shape(args):
+    """``(data, ranks)`` of the mesh the flags ask for, or None for one
+    device (``run_nerf_batch.py:124-152``)."""
+    data = max(1, args.batch_size)
+    n = args.mesh_devices
+    if not n and data > 1:
+        if "WORLD_SIZE" in os.environ:
+            n = int(os.environ["WORLD_SIZE"])
+        elif args.device.startswith("cuda"):
+            import torch
+
+            n = torch.cuda.device_count()
+    if n <= 1 and data == 1:
+        return None
+    n = max(n, data)
+    if n % data:
+        raise ValueError(f"--mesh_devices {n} not divisible by "
+                         f"--batch_size {data}")
+    return data, n
 
 
 @contextlib.contextmanager
@@ -75,29 +113,98 @@ def _profile(trace_dir, step: int, device):
 
 def main(argv=None):
     """Run the CLI; returns the run's state (``trainer``, ``start_step``,
-    ``logs`` of each item, ``dataset``, ``args``) for callers that drive
-    it from Python."""
-    from mpsnerf_torch.config import dump_args, parse_args, print_args
+    ``logs`` of each item, ``dataset``, ``args``) for callers that drive it
+    from Python.  On a mesh that the CLI starts itself, ``ranks`` holds
+    each rank's summary (:func:`_summary`), and ``start_step`` and
+    ``logs`` are rank 0's."""
+    from mpsnerf_torch.config import parse_args
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv, _parser())
+    shape = mesh_shape(args)
+    if shape is None or "RANK" in os.environ:
+        return _run(args, shape)
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return _run(args, shape)
+    if args.device.startswith("cuda"):
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda, but torch sees no CUDA "
+                               "device; pass --device cpu to run on the CPU")
+    from mpsnerf_torch.parallel.launch import spawn
+    from mpsnerf_torch.parallel.mesh import DEFAULT_TIMEOUT_S
+
+    ranks = spawn(_rank_main, shape[1], (argv,), device=args.device,
+                  timeout_s=DEFAULT_TIMEOUT_S)
+    return types.SimpleNamespace(args=args, ranks=ranks,
+                                 start_step=ranks[0]["start_step"],
+                                 logs=ranks[0]["logs"])
+
+
+def _summary(run) -> dict:
+    """What a rank hands back to the CLI that started it: its place in the
+    mesh and backend, its steps and per-item logs."""
+    from mpsnerf_torch.parallel.mesh import DIST
+
+    mesh = run.trainer.mesh
+    return dict(rank=mesh.rank, data_index=mesh.data_index,
+                ray_index=mesh.ray_index, backend=DIST["backend"],
+                start_step=run.start_step,
+                global_step=run.trainer.global_step, logs=run.logs)
+
+
+def _rank_main(argv):
+    """One rank of a mesh that :func:`main` started (the group is up)."""
+    from mpsnerf_torch.config import parse_args
 
     args = parse_args(argv, _parser())
+    return _summary(_run(args, mesh_shape(args)))
 
+
+def _run(args, shape):
+    """The CLI on one device (``shape`` None) or as one rank of a mesh."""
     import torch
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but torch sees no CUDA device; "
-                           "pass --device cpu to run on the CPU")
-    if args.batch_size > 1 or args.mesh_devices:
-        raise NotImplementedError(
-            f"--batch_size {args.batch_size} / --mesh_devices "
-            f"{args.mesh_devices}: the batched and sharded trainers are not "
-            "ported (ROADMAP.md item 8); run with --batch_size 1")
+    mesh = None
+    if shape is None:
+        device = torch.device(args.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("--device cuda, but torch sees no CUDA "
+                               "device; pass --device cpu to run on the CPU")
+    else:
+        import torch.distributed as dist
+
+        from mpsnerf_torch.parallel.mesh import (
+            DIST, initialize_distributed, make_2d_mesh,
+        )
+
+        if not dist.is_initialized():
+            initialize_distributed(device=args.device)
+        data, n = shape
+        if dist.get_world_size() != n:
+            raise ValueError(f"--mesh_devices {n}, but the process group "
+                             f"has {dist.get_world_size()} ranks")
+        device = torch.device(DIST.get("device", args.device))
+        mesh = make_2d_mesh(data, n // data, device)
+    primary = mesh is None or mesh.rank == 0
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
+    if primary:
+        from mpsnerf_torch.config import dump_args, print_args
 
-    print_args(args)
-    basedir, expname = args.basedir, args.expname or "exp"
-    dump_args(args, basedir, expname)
+        if mesh is not None:
+            print(f"Mesh execution: {n} ranks (data={data}, ray={n // data})"
+                  f" over {DIST['backend']} ({DIST['reason']})")
+        print_args(args)
+        dump_args(args, args.basedir, args.expname or "exp")
+    return _train(args, device, mesh, primary)
+
+
+def _train(args, device, mesh, primary):
+    import torch
 
     from mpsnerf_torch.data import attach_spconv_plan, to_device_input
     from mpsnerf_torch.data.prefetch import PrefetchLoader
@@ -109,6 +216,7 @@ def main(argv=None):
     from mpsnerf_torch.train.metrics import MetricWriter
     from mpsnerf_torch.train.trainer import TrainConfig, Trainer
 
+    basedir, expname = args.basedir, args.expname or "exp"
     torch.manual_seed(args.seed)
     model = return_model(args)
     pair_mode = args.data_set_type in PAIR_DATA_SETS
@@ -129,21 +237,31 @@ def main(argv=None):
         smooth_interval=args.smooth_interval,
         pair_mode=pair_mode,
     )
-    dataset = return_dataset(args)
+    # rank 0 loads the items and runs the eval
+    dataset = return_dataset(args) if primary else None
     smpl_models = load_smpl_models(device=device)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"Model '{args.model}': {n_params / 1e6:.2f}M params")
+    if primary:
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"Model '{args.model}': {n_params / 1e6:.2f}M params")
 
-    # the newest checkpoint; Adam fresh unless --resume_optimizer
+    # the newest checkpoint, on every rank; Adam fresh unless
+    # --resume_optimizer
     start, restored = 0, None
     if not args.no_reload:
         start, restored = restore_latest(basedir, expname)
-    trainer = Trainer(model, cfg, device=device, start_step=start,
-                      seed=args.seed)
+    if mesh is None:
+        trainer = Trainer(model, cfg, device=device, start_step=start,
+                          seed=args.seed)
+    else:
+        from mpsnerf_torch.parallel.mesh import MeshTrainer, scatter_to_rows
+
+        trainer = MeshTrainer(model, cfg, mesh, start_step=start,
+                              seed=args.seed)
     if restored is not None:
-        print(f"Reloading from step {start}")
+        if primary:
+            print(f"Reloading from step {start}")
         trainer.restore(restored, load_optimizer=bool(args.resume_optimizer))
-    writer = MetricWriter(basedir, expname)
+    writer = MetricWriter(basedir, expname) if primary else None
     run = types.SimpleNamespace(trainer=trainer, start_step=start, logs=[],
                                 dataset=dataset, args=args)
 
@@ -180,22 +298,25 @@ def main(argv=None):
             data_interval=1, start_pose=13, device=device)
 
     if args.save_weights == 0:
-        tag = f"testset_{trainer.global_step:06d}_more_real_ssim_psnr"
-        print("Begin to test, save_weights == 0")
-        run_eval(tag)
-        print("Saved test set")
-        writer.close()
+        if primary:
+            tag = f"testset_{trainer.global_step:06d}_more_real_ssim_psnr"
+            print("Begin to test, save_weights == 0")
+            run_eval(tag)
+            print("Saved test set")
+            writer.close()
         return run
 
-    profile_dir = os.environ.get("MPSNERF_PROFILE_DIR")
+    profile_dir = os.environ.get("MPSNERF_PROFILE_DIR") if primary else None
     n_iters = args.N_iteration + 1
     running = []
     last_print = last_ckpt = last_eval = trainer.global_step
     t0 = time.time()
-    loader = PrefetchLoader(dataset, seed=args.seed,
-                            num_workers=min(args.num_worker, 4))
-    primary = (not torch.distributed.is_initialized()
-               or torch.distributed.get_rank() == 0)
+    loader = None
+    if primary:
+        # on a mesh, rank 0 alone draws the single-process stream
+        slot = {} if mesh is None else dict(process_index=0, process_count=1)
+        loader = PrefetchLoader(dataset, seed=args.seed,
+                                num_workers=min(args.num_worker, 4), **slot)
 
     # the numpy-era models' NeRF reads the canonical grid too
     canonical = bool(getattr(model, "canonical_grid", False))
@@ -217,16 +338,27 @@ def main(argv=None):
         sp = tp if sp_item is tp_item else to_device_input(sp_item, device)
         return smpl, sp, tp
 
+    def next_item():
+        """This rank's item: the loader's next, or on a mesh its row's of
+        the next ``data_size`` (rank 0 sends them)."""
+        if mesh is None:
+            return next(loader)
+        batch = ([next(loader) for _ in range(mesh.data_size)] if primary
+                 else None)
+        return scatter_to_rows(batch, mesh)
+
     while trainer.global_step < n_iters:
         # profile the second item (after the first one's lazy set-up)
         do_trace = profile_dir and len(run.logs) == 1
         with _profile(profile_dir if do_trace else None,
                       trainer.global_step, device):
-            smpl, sp, tp = prepare(next(loader))
+            smpl, sp, tp = prepare(next_item())
             logs = trainer.train_item(smpl, sp, tp)
         running.append(logs)
         run.logs.append(logs)
         gs = trainer.global_step
+        if not primary:
+            continue
 
         # each cadence fires when the view-step counter crosses a multiple
         if gs // args.i_print > last_print // args.i_print:
@@ -240,17 +372,15 @@ def main(argv=None):
                         if dropped > 0 else "")
             print(f"[TRAIN] Iter: {gs}  Loss: {round(mean['loss'], 5)} "
                   f"PSNR: {round(mean['psnr'], 3)}  Time: {round(dt, 3)} "
-                  f"s/item{drop_str}")
+                  f"s/{'item' if mesh is None else 'batch'}{drop_str}")
             running = []
             t0 = time.time()
 
         if gs // args.i_weights > last_ckpt // args.i_weights \
                 and args.save_weights:
             last_ckpt = gs
-            path = save_checkpoint(basedir, expname, gs, trainer.state(),
-                                   is_primary=primary)
-            if path:
-                print("Saved checkpoints at", path)
+            path = save_checkpoint(basedir, expname, gs, trainer.state())
+            print("Saved checkpoints at", path)
 
         if gs // args.i_testset > last_eval // args.i_testset:
             last_eval = gs
@@ -259,8 +389,9 @@ def main(argv=None):
                 print("Saved test set")
             except NotImplementedError as e:
                 print("eval skipped:", e)
-    loader.close()
-    writer.close()
+    if primary:
+        loader.close()
+        writer.close()
     return run
 
 

@@ -284,8 +284,14 @@ def test_factory_refuses_what_is_not_ported(name):
 
 
 def test_bn_axis_name_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TMPSNeRF(bn_axis_name="batch")
+    """``bn_axis_name`` builds (cross-replica BatchNorm, trained under a
+    mesh in ``tests/test_torch_port_parallel.py``); a train-mode encode
+    outside a bound mesh raises, an eval-mode one runs."""
+    model = TMPSNeRF(bn_axis_name="batch", **SMALL)
+    imgs = torch.rand(2, 3, 16, 16)
+    with pytest.raises(RuntimeError, match="'batch' is not bound"):
+        model.train().encode(imgs)
+    assert model.eval().encode(imgs).shape == (2, 64, 4, 4)
 
 
 @pytest.mark.parametrize("name", ["human_sample_0", "correction_batch"])
