@@ -165,19 +165,30 @@ non-zero):
      256, in the target frame and with ``--can_flag 1``: ms of the density
      queries, the K1 mask, the K=5 carve and marching cubes, vertex and
      triangle counts, ``n_dropped``, the vertices finite and inside the grid
-     box; (b) ``render_thuman_mesh_torch.main`` on the two OBJ files (3
-     cameras, 512^2): the RGBA PNGs decode, coverage > 0; (c)
+     box; (b) ``render_thuman_mesh_torch.main`` on the two OBJ files (one
+     camera, 512^2: the phase's depth cut): the RGBA PNGs decode, coverage
+     > 0; (c)
      ``MeshAnimationRenderer`` baked at (a)'s canonical mesh, ``render_pose``
      at 512^2 from the item's 3 cameras, fast and full: ms, hit pixels,
      sample points, finite pixels; (d) a port bundle of the seeded model
-     served by ``BundleServer`` on 127.0.0.1, port 0, in this process:
+     (exported with ``shard_devices`` 2) served by ``BundleServer`` on
+     127.0.0.1, port 0, in this process:
      /healthz, /manifest, /render?view=1 (equal to
      ``ViewRenderer.render_view`` within 1e-5), /camera at view 1's camera
      (equal to /render within 1e-5), /spiral (4 frames at 256^2, with and
      without ``format=video``: the AVI's index read back), /mesh?n=128 (its
      triangle count equal to a direct ``extract_density_mesh`` on the
-     bundle's model), /animate?view=1 full and fast; each request's wall ms
-     with HTTP; (e) phase 2's comparisons on what (a)-(d) gave the kernels:
+     bundle's model), /animate?view=1 full and fast; then the sharded
+     requests: /render?view=1&sharded=1 (its first starts 2 ranks that
+     share the card over gloo), again with the ranks' counts set to 0,
+     and /camera at view 1's camera with ``sharded=1``, each within 1e-5
+     of the unsharded /render and of /render with ``global=0`` (the
+     unsharded chunked path); the ranks' summed ``n_dropped``, the
+     overflow blocks, the ranks' K1/K2 launches, K1 and K2's forward
+     against their plain versions on rank 0's first query of the counted
+     request, and no rank alive after ``BundleServer.stop()``; each
+     request's wall ms with HTTP; (e) phase 2's comparisons on what (a)-(d)
+     gave the kernels:
      K1 and K2's forward on the middle query chunk of each extraction, on
      the first chunk of the bake and of the animation samples, on the
      first served /spiral frame's fine pre-pass and first tail tile and on
@@ -214,6 +225,13 @@ non-zero):
      one-rank NCCL group on the card runs item 0's plain step through
      ``make_batched_train_step`` and an ``all_reduce``, equal to the
      single-process step;
+  14. the jax-free tools (``mpsnerf_torch/tools``): (a)
+     ``validate_dataset`` on phase 9's 512^2 THuman fixture (exit 0, its
+     10 checks PASS) and on a copy with one mask removed (exit 1, naming
+     the file); (b) ``train_proof``, ``generalization_proof`` and
+     ``pair_train_proof`` on the card at a smoke size (2 items at 64^2,
+     the 6890-vertex rig) into a temporary directory: finite losses, the
+     JAX proofs' JSON keys, K1 and K2 (forward and backward) launched;
   then one ``{"kernels": [...]}`` line: each kernel's record from phase 7
      with its launches on each path (``launches``: phase 5;
      ``launches_serving``: phase 4; ``launches_eval``,
@@ -223,15 +241,18 @@ non-zero):
      ``launches_h36m_cli``, ``launches_h36m_eval``: phase 10;
      ``launches_legacy``, ``launches_legacy_view``,
      ``launches_legacy_cli``, ``launches_legacy_eval``: phase 11;
-     ``launches_mesh``, ``launches_animate``, ``launches_serve``: phase
-     12; ``launches_multi_device``, ``launches_sharded_render``: phase 13
-     (a) and (d), summed over the 4 ranks), K2's backward record
+     ``launches_mesh``, ``launches_animate``, ``launches_serve``,
+     ``launches_sharded_serve`` (summed over its 2 ranks): phase 12;
+     ``launches_multi_device``, ``launches_sharded_render``: phase 13
+     (a) and (d), summed over the 4 ranks; ``launches_tools``: phase 14
+     (b)), K2's backward record
      ``variant_plain_step`` (phase 10 (d)'s times) and K1's
      ``shapes["mesh_grid"]`` (phase 12 (e));
-  14. the device line, last.
+  15. the device line, last.
 
 Launch counts are set to 0 just before each path (phases 4, 5, 6, 8, 9,
-10, 11, 12, and in every rank of phase 13) and read just after; launches
+10, 11, 12, 14, and in every rank of phase 13 and of 12 (d)'s sharded
+request) and read just after; launches
 made to compare or time a kernel do not count.
 ``--stop-after N`` ends the run after phase N (a short check of a new
 kernel); it then prints no result lines.
@@ -3435,6 +3456,7 @@ def compare_legacy_inputs(calls):
 
 MESH_N = 256       # the extraction grid's points per axis (the CLI default)
 SERVE_MESH_N = 128
+SHARD_RANKS = 2  # the served bundle's sharded render: ranks share the card
 MESH_CHUNK = 262144  # the CLI's points per density query
 
 
@@ -3516,8 +3538,9 @@ def extraction_on_the_card(dev, tmp, spy, size=512, mesh_n=MESH_N,
     as its checkpoint), in the target frame and with ``--can_flag 1``; each
     extraction's stage times, counts, ``n_dropped`` and its vertices inside
     the grid box; then ``render_thuman_mesh_torch.main`` on the two OBJ
-    files (3 cameras, 512^2).  The middle query chunk of each extraction
-    is captured by ``spy``.  Returns (the runs, the posed vertices, launches)."""
+    files (camera 4 of its 3, 512^2: the phase's depth cut).  The middle
+    query chunk of each extraction is captured by ``spy``.  Returns (the
+    runs, the posed vertices, launches)."""
     import os
     import pathlib
 
@@ -3586,7 +3609,7 @@ def extraction_on_the_card(dev, tmp, spy, size=512, mesh_n=MESH_N,
         t0 = time.perf_counter()
         pngs = render_thuman_mesh_torch.main(
             ["--config", str(config / "canonical_transformer.txt"),
-             "--data_root", root])
+             "--data_root", root, "--cameras", "4"])
         wall = time.perf_counter() - t0
         cover = []
         for path in pngs:
@@ -3594,9 +3617,9 @@ def extraction_on_the_card(dev, tmp, spy, size=512, mesh_n=MESH_N,
                 img = decode_png(f.read())
             cover.append(float((img[..., 3] > 0).mean())
                          if img.shape == (512, 256, 4) else 0.0)
-        ok = len(pngs) == 6 and min(cover) > 0
-        log(f"[12] (b) normal maps: {len(pngs)} RGBA PNGs (2 meshes x 3 "
-            f"cameras, 512^2 cropped to 512x256) in {wall:.1f} s, coverage "
+        ok = len(pngs) == 2 and min(cover) > 0
+        log(f"[12] (b) normal maps: {len(pngs)} RGBA PNGs (2 meshes x "
+            f"camera 4, 512^2 cropped to 512x256) in {wall:.1f} s, coverage "
             f"{min(cover):.3f}-{max(cover):.3f}: {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(1)
@@ -3669,6 +3692,7 @@ def serving_on_the_card(dev, tmp, item, smpl, camera, spy, spiral_hw=256,
     import json as json_
     import os
     import pathlib
+    import urllib.error
     import urllib.request
 
     import numpy as np
@@ -3691,7 +3715,7 @@ def serving_on_the_card(dev, tmp, item, smpl, camera, spy, spiral_hw=256,
     out = os.path.join(tmp, "bundle")
     t0 = time.perf_counter()
     export_serving_bundle(out, args, model, {int(item["gender"]): smpl},
-                          clean, clean)
+                          clean, clean, shard_devices=SHARD_RANKS)
     log(f"[12] (d) bundle exported in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{f} {os.path.getsize(os.path.join(out, f)) / 1e6:.1f}"
                     f" MB" for f in sorted(os.listdir(out))))
@@ -3703,9 +3727,14 @@ def serving_on_the_card(dev, tmp, item, smpl, camera, spy, spiral_hw=256,
 
     def request(route, data=None):
         t0 = time.perf_counter()
-        with urllib.request.urlopen(urllib.request.Request(
-                url + route, data=data), timeout=600) as r:
-            out = r.read()
+        try:
+            with urllib.request.urlopen(urllib.request.Request(
+                    url + route, data=data), timeout=600) as r:
+                out = r.read()
+        except urllib.error.HTTPError as e:
+            log(f"[12] (d) {route}: HTTP {e.code}: "
+                f"{e.read().decode(errors='replace')}")
+            raise
         walls[route] = (time.perf_counter() - t0) * 1e3
         return out
 
@@ -3739,8 +3768,12 @@ def serving_on_the_card(dev, tmp, item, smpl, camera, spy, spiral_hw=256,
             torch.cuda.synchronize()
         launches = read_counts()
         served_model = srv.renderer.model
+        sharded = sharded_requests(srv, request, body, cam, rendered,
+                                   clean["img_all"].shape[-2:], walls)
     finally:
         srv.stop()
+    sharded["alive_after_stop"] = [p for p in sharded["pids"]
+                                   if not _process_gone(p)]
     with uncounted():
         live = ViewRenderer(model, lambda g: smpl, n_samples=128,
                             tile=16384, device=dev)
@@ -3778,6 +3811,7 @@ def serving_on_the_card(dev, tmp, item, smpl, camera, spy, spiral_hw=256,
     }
     log(f"[12] (d) requests, wall ms with HTTP: "
         + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    checks["sharded"] = sharded_report(sharded)
     log(f"[12] (d) /render vs ViewRenderer max|diff| {render_err:.3g}, "
         f"/camera vs /render {camera_err:.3g}, spiral {spiral.shape}, video "
         f"{codec} {w}x{h} {n_frames} frames, /mesh {len(m_verts)} vertices "
@@ -3787,7 +3821,150 @@ def serving_on_the_card(dev, tmp, item, smpl, camera, spy, spiral_hw=256,
         + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
     if not all(checks.values()):
         raise SystemExit(1)
-    return launches
+    return launches, sharded["launches"], sharded["errs"]
+
+
+def _process_gone(pid):
+    import os
+
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    return False
+
+
+# the sharded request's rank 0 spy (in the rank's process)
+_RANK_SPY = {}
+
+
+def serve_rank_arm():
+    """On every rank of the served bundle's sharded render, before the
+    request that counts: the launch counts to 0; rank 0 (on the card)
+    keeps the K1 and K2 forward inputs of its next ``MPSNeRF.query``,
+    its first query of the request.  Returns the rank."""
+    import torch
+
+    from mpsnerf_torch.models.mps_nerf import MPSNeRF
+    from mpsnerf_torch.parallel.mesh import DIST
+
+    reset_counts()
+    if DIST["rank"] == 0 and torch.device(DIST["device"]).type == "cuda":
+        spy = kernel_spy().__enter__()
+        first = nth_call(spy, "sharded request first query", MPSNeRF,
+                         "query").__enter__()
+        _RANK_SPY.update(spy=spy, first=first)
+    return DIST["rank"]
+
+
+def serve_rank_read():
+    """After it: every rank's launch counts; rank 0 closes its spy and
+    holds K1 and K2's forward against their plain versions on what it
+    kept (phase 13 (e)'s comparisons).  Returns ``(counts, errs)``."""
+    counts = read_counts()
+    errs = {}
+    if _RANK_SPY:
+        _RANK_SPY.pop("first").__exit__()
+        spy = _RANK_SPY.pop("spy")
+        spy.__exit__()
+        errs = compare_render_inputs(spy.calls, tag="[12] (d)",
+                                     what="rank 0's first query of the "
+                                          "sharded request")
+    return counts, errs
+
+
+def sharded_requests(srv, request, body, cam, rendered, hw, walls):
+    """Phase 12 (d), the sharded requests on the same server: /render of
+    view 1 with ``sharded=1`` (it starts the ranks: 2 sharing the card
+    over gloo), then, the ranks' counts set to 0 and rank 0's spy armed,
+    the same request again and /camera at view 1's camera with
+    ``sharded=1``; each against /render's unsharded image (the global
+    path) and the unsharded chunked path's (``global=0``)."""
+    import io
+
+    import numpy as np
+    import torch
+
+    served = srv.renderer
+    out = {"err": {}, "chunked_err": {}, "n_dropped": [],
+           "overflow_blocks": 0, "block": served.manifest["shard_rays"]}
+    before = served.n_overflow_chunks
+
+    def sharded(route, data, name):
+        img = np.load(io.BytesIO(request(route, data)))
+        walls[name] = walls.pop(route)
+        out["err"][name] = float(np.abs(img - rendered).max())
+        out["chunked_err"][name] = float(np.abs(img - chunked).max())
+        last = served.shard_ranks.last
+        out["n_dropped"].append(sum(last["n_dropped"]))
+        out["blocks"] = last["blocks"]
+
+    # the unsharded chunked path: the ranks' path, one process
+    chunked = np.load(io.BytesIO(request("/render?view=1&global=0", body)))
+    on_card = served.device.type == "cuda"
+    out["reserved_gib"] = (torch.cuda.memory_reserved() / 2 ** 30
+                           if on_card else 0.0)
+    # the card's free and total memory before the first sharded request
+    out["free_gib"], out["total_gib"] = (
+        [x / 2 ** 30 for x in torch.cuda.mem_get_info()] if on_card
+        else (0.0, 0.0))
+    sharded("/render?view=1&sharded=1", body, "sharded /render (start)")
+    out["backend"] = served.on_ranks(_rank_backend)
+    served.on_ranks(serve_rank_arm)
+    sharded("/render?view=1&sharded=1", body, "sharded /render")
+    sharded(f"/camera?h={hw[0]}&w={hw[1]}&sharded=1", cam,
+            "sharded /camera")
+    reads = served.on_ranks(serve_rank_read)
+    out["launches"] = {k: sum(c[k] for c, _ in reads) for k in reads[0][0]}
+    out["errs"] = reads[0][1]
+    out["overflow_blocks"] = served.n_overflow_chunks - before
+    out["rank_peak_gib"] = served.on_ranks(_rank_peak_gib)
+    out["pids"] = served.shard_ranks.pids
+    return out
+
+
+def _rank_backend():
+    from mpsnerf_torch.parallel.mesh import DIST
+
+    return f"{DIST['device']} {DIST['backend']}"
+
+
+def _rank_peak_gib():
+    """This rank's peak reserved device memory (GiB; 0 on the CPU)."""
+    import torch
+
+    from mpsnerf_torch.parallel.mesh import DIST
+
+    if torch.device(DIST["device"]).type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_reserved() / 2 ** 30
+
+
+def sharded_report(sh):
+    """Logs the sharded requests; True when every check holds."""
+    ok = (all(e <= 1e-5 for e in sh["err"].values())
+          and all(e <= 1e-5 for e in sh["chunked_err"].values())
+          and sh["launches"]["nearest_vertex"] > 0
+          and sh["launches"]["grid_sample_patch_fwd"] > 0
+          and not sh["alive_after_stop"])
+    log(f"[12] (d) sharded requests on {SHARD_RANKS} ranks "
+        f"({', '.join(sh['backend'])}), blocks of {sh['block']} rays "
+        f"({sh['blocks']} for /camera): max|diff| "
+        f"to the unsharded /render "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sh["err"].items())
+        + "; to the unsharded chunked path (/render&global=0, the ranks' "
+        "path in one process) "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sh["chunked_err"].items())
+        + f"; n_dropped summed over the ranks {sh['n_dropped']}, overflow "
+        f"blocks {sh['overflow_blocks']}; the ranks' launches "
+        f"{json.dumps(sh['launches'])}; ranks alive after stop "
+        f"{sh['alive_after_stop']}; before the first, this process's "
+        f"reserved device memory {sh['reserved_gib']:.2f} GiB (released "
+        f"before each sharded request) and the card's free memory "
+        f"{sh['free_gib']:.2f} of {sh['total_gib']:.2f} GiB; the ranks' peak "
+        f"reserved {[round(x, 2) for x in sh['rank_peak_gib']]} GiB: "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
 
 
 def geometry_and_serving(dev, item, smpl, camera, clock_mhz, per_pair,
@@ -3810,11 +3987,11 @@ def geometry_and_serving(dev, item, smpl, camera, clock_mhz, per_pair,
                 dev, tmp, spy, size=size, mesh_n=mesh_n)
             anim_launches = animation_on_the_card(
                 dev, item, smpl, runs["canonical"], spy)
-            serve_launches = serving_on_the_card(
+            serve_launches, shard_launches, shard_errs = serving_on_the_card(
                 dev, tmp, item, smpl, camera, spy, spiral_hw=spiral_hw,
                 mesh_n=serve_mesh_n)
     paths = {"mesh": mesh_launches, "animate": anim_launches,
-             "serve": serve_launches}
+             "serve": serve_launches, "sharded_serve": shard_launches}
     ok = all(counts["nearest_vertex"] > 0
              and counts["grid_sample_patch_fwd"] > 0
              for counts in paths.values())
@@ -3823,6 +4000,8 @@ def geometry_and_serving(dev, item, smpl, camera, clock_mhz, per_pair,
     if not ok:
         raise SystemExit(1)
     errs = compare_geometry_inputs(spy.calls)
+    for key, e in shard_errs.items():
+        errs[key] = max(errs.get(key, 0.0), e)
     del spy
     # the carve's 5 cm mask call on the target grid: a 2M-point slice
     # against the plain version, the whole grid timed
@@ -4012,26 +4191,28 @@ def mesh_rank(items, u, delta, serve_item, render_rays, capacity, tile,
     return out
 
 
-def compare_render_inputs(calls):
-    """Phase 13 (e) on the sharded render's first tail tile: K1's ids and
-    d2 on each call, K2's forward on the latent and the RGB."""
+def compare_render_inputs(calls, tag="[13]",
+                          what="the sharded render's first tail tile"):
+    """Phase 13 (e) on the sharded render's first tail tile (12 (d): on
+    the sharded request's first query): K1's ids and d2 on each call, K2's
+    forward on the latent and the RGB."""
     err, n_knn, n_fwd, ok_all = {"nearest_vertex": 0.0}, 0, 0, True
     for stage, name, args in calls:
         if name == "nearest_vertex_cuda":
             n_knn += 1
-            e, _ = compare_knn(f"[13] {stage}, call {n_knn}", *args[:3])
+            e, _ = compare_knn(f"{tag} {stage}, call {n_knn}", *args[:3])
             err["nearest_vertex"] = max(err["nearest_vertex"], e)
         elif name == "grid_sample_patch_fwd_cuda":
             n_fwd += 1
             which = "rgb" if args[0].shape[1] == 3 else "latent"
-            ok, e = compare_fwd(f"[13] {stage} {which}", *args)
+            ok, e = compare_fwd(f"{tag} {stage} {which}", *args)
             key = ("grid_sample_patch_fwd", which)
             err[key] = max(err.get(key, 0.0), e)
             ok_all &= ok
     ok_all &= n_knn >= 1 and n_fwd >= 2
-    log(f"[13] captured the sharded render's first tail tile on rank 0: "
-        f"{n_knn} K1 and {n_fwd} K2 forward calls, each against its plain "
-        f"version: {'ok' if ok_all else 'FAIL'}")
+    log(f"{tag} captured {what} on rank 0: {n_knn} K1 and {n_fwd} K2 "
+        f"forward calls, each against its plain version: "
+        f"{'ok' if ok_all else 'FAIL'}")
     if not ok_all:
         raise SystemExit(1)
     return err
@@ -4438,6 +4619,127 @@ def multi_device(dev, serve_item, size=512, n_verts=6890, n_rays=1000,
              "sharded_render": render_launched}, errs)
 
 
+# ---- phase 14: the jax-free tools ------------------------------------------
+
+# the JAX proofs' JSON keys (``tools/*_proof.py``; the pair proof's and
+# every port proof's ``setup`` names the card)
+PROOF_KEYS = {
+    "train_proof": {"setup", "train_minutes", "history",
+                    "heldout_view_metrics", "mean_heldout_psnr",
+                    "mean_heldout_ssim"},
+    "generalization_proof": {"setup", "history", "results"},
+    "pair_train_proof": {
+        "mode", "setup", "items", "view_steps", "wall_s",
+        "same_pose_psnr_first_quarter", "same_pose_psnr_last_quarter",
+        "cross_pose_items", "cross_pose_psnr_first_quarter",
+        "cross_pose_psnr_last_quarter", "cross_pose_loss_last", "history"},
+}
+PROOF_FILES = {"train_proof": "torch_synthetic_training_proof.json",
+               "generalization_proof": "torch_generalization_proof.json",
+               "pair_train_proof": "torch_pair_train_proof.json"}
+
+
+def _validate(root):
+    """``mpsnerf_torch.tools.validate_dataset`` on a THuman root: (exit
+    code, its PASS/FAIL lines, its output)."""
+    import contextlib
+    import io
+
+    from mpsnerf_torch.tools import validate_dataset
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = validate_dataset.main(["--type", "thuman", root])
+    text = buf.getvalue()
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith(("  PASS ", "  FAIL "))]
+    return code, lines, text
+
+
+def tools_on_the_card(dev, size=512, n_verts=6890, proof_size=64,
+                      proof_verts=6890, proof_items=2):
+    """Phase 14: (a) the dataset validator on phase 9's THuman fixture
+    (exit 0, its 10 checks PASS) and on a copy with one mask removed (exit
+    1, naming that file); (b) the three learning proofs on the card at a
+    smoke size (``proof_items`` items at ``proof_size``^2), written into a
+    temporary directory: finite losses, the JAX proofs' JSON keys, K1 and
+    K2 launched.  Returns the proofs' launches."""
+    import contextlib
+    import io
+    import json as json_
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mpsnerf_torch.tools import (
+        generalization_proof, pair_train_proof, train_proof,
+    )
+
+    with tempfile.TemporaryDirectory(prefix="mpsnerf_tools_") as tmp:
+        t0 = time.perf_counter()
+        root = write_thuman_fixture(tmp, size, n_verts)
+        code, lines, _ = _validate(root)
+        ok = code == 0 and len(lines) == 10 and all(
+            ln.startswith("  PASS") for ln in lines)
+        broken = os.path.join(tmp, "broken")
+        shutil.copytree(root, broken)
+        gone = os.path.join(broken, "mask_cihp", "00", "0.png")
+        os.remove(gone)
+        code_b, lines_b, text_b = _validate(broken)
+        failed = [ln.split(":")[0].strip() for ln in lines_b
+                  if ln.startswith("  FAIL")]
+        ok_b = code_b == 1 and gone in text_b
+        log(f"[14] (a) validate_dataset on phase 9's THuman fixture "
+            f"({size}^2, 24 cameras): exit {code}, {len(lines)} checks "
+            f"PASS {sum(ln.startswith('  PASS') for ln in lines)}; a mask "
+            f"removed: exit {code_b}, {failed}, the file named "
+            f"{gone in text_b}; {time.perf_counter() - t0:.1f} s: "
+            f"{'ok' if ok and ok_b else 'FAIL'}")
+        if not (ok and ok_b):
+            log("\n".join(lines + lines_b))
+            raise SystemExit(1)
+
+        out_dir = os.path.join(tmp, "proofs")
+        argv = ["--device", str(dev), "--size", str(proof_size),
+                "--n_verts", str(proof_verts), "--items", str(proof_items),
+                "--out", out_dir]
+        reset_counts()
+        ok_all = True
+        for name, mod, extra in (
+                ("train_proof", train_proof, []),
+                ("generalization_proof", generalization_proof, []),
+                ("pair_train_proof", pair_train_proof, ["--check", "0"])):
+            t0 = time.perf_counter()
+            counts0 = read_counts()
+            with contextlib.redirect_stdout(io.StringIO()):
+                mod.main(argv + extra)
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            counts = {k: v - counts0[k] for k, v in read_counts().items()}
+            with open(os.path.join(out_dir, PROOF_FILES[name])) as f:
+                got = json_.load(f)
+            losses = [h["loss"] for h in got["history"]]
+            ok = (set(got) == PROOF_KEYS[name]
+                  and all(math.isfinite(x) for x in losses)
+                  and counts["nearest_vertex"] > 0
+                  and counts["grid_sample_patch_fwd"] > 0
+                  and counts["grid_sample_patch_bwd"] > 0)
+            ok_all &= ok
+            log(f"[14] (b) {name} ({proof_items} items at {proof_size}^2, "
+                f"{proof_verts} vertices): {time.perf_counter() - t0:.1f} "
+                f"s; losses {[round(x, 5) for x in losses]}; JSON keys "
+                f"{'as JAX' if set(got) == PROOF_KEYS[name] else sorted(got)}"
+                f"; setup {got['setup']!r}; launches {json.dumps(counts)}: "
+                f"{'ok' if ok else 'FAIL'}")
+        launches = read_counts()
+    if not ok_all:
+        raise SystemExit(1)
+    return launches
+
+
 def merge_path(records, launches, errs):
     """Add a path's launches (``launches_<run>``) and the worst errors of
     its comparisons (K2's keyed by latent or RGB) to the kernel records."""
@@ -4458,7 +4760,7 @@ def main(argv=None):
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--stop-after", type=int, default=13,
+    ap.add_argument("--stop-after", type=int, default=14,
                     help="end after this phase (no result lines)")
     stop_after = ap.parse_args(argv).stop_after
 
@@ -4830,7 +5132,16 @@ def main(argv=None):
     merge_path(records, *multi_device(dev, item))
     log(f"[13] phase in {time.perf_counter() - t0:.0f} s; total "
         f"{time.perf_counter() - t_start:.0f} s")
+    if stop_after <= 13:
+        return 0
+
+    # ---- 14. the jax-free tools
+    t0 = time.perf_counter()
+    merge_path(records, {"tools": tools_on_the_card(dev)}, {})
+    log(f"[14] phase in {time.perf_counter() - t0:.0f} s; total "
+        f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": records}), flush=True)
+    # ---- 15. the device line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

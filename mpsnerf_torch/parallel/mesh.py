@@ -336,12 +336,13 @@ def make_sharded_render(model, mesh: Mesh, n_samples: int, chunk: int = 0,
     """Rays sharded over the ``ray`` axis: each rank renders its strided
     shard with no traffic, then the shards are gathered into the whole
     image on every rank.  Returns ``fn(smpl, sp, tp, latent, rays_o,
-    rays_d, near, far) -> (rgb, disp, acc)`` on the whole rays (perturb
-    0).  ``chunk`` > 0 renders a slice longer than it in chunks
-    (``render_rays_mapped``); ``capacity`` > 0 renders it with global
-    compaction (``render_rays_compact``, ``capacity`` candidates per rank,
-    a multiple of ``tile``), and a fourth output holds each rank's
-    ``n_dropped`` (0: every shard was exact).
+    rays_d, near, far) -> (rgb, disp, acc, n_dropped)`` on the whole rays
+    (perturb 0), ``n_dropped`` holding each rank's compaction drop (0:
+    every shard was exact; the JAX render drops it).  ``chunk`` > 0
+    renders a slice longer than it in chunks (``render_rays_mapped``, a
+    rank's drop the largest of its chunks'); ``capacity`` > 0 renders it
+    with global compaction (``render_rays_compact``, ``capacity``
+    candidates per rank, a multiple of ``tile``).
 
     The gather: each rank writes its shard into a zero-filled buffer of the
     whole outputs and one ``all_reduce`` sums the buffers.  A sum with
@@ -355,20 +356,21 @@ def make_sharded_render(model, mesh: Mesh, n_samples: int, chunk: int = 0,
     def fn(smpl, sp_input, tp_input, latent, rays_o, rays_d, near, far):
         n = rays_o.shape[0]
         ro, rd, nr, fr = shard_rays_to_mesh((rays_o, rays_d, near, far), mesh)
-        dropped = None
         if capacity > 0:
             rgb, disp, acc, dropped = render_rays_compact(
                 model, smpl, sp_input, tp_input, latent, ro, rd, nr, fr,
                 n_samples, capacity=capacity, tile=tile,
                 white_bkgd=white_bkgd)
         elif chunk and ro.shape[0] > chunk:
-            rgb, disp, acc = render_rays_mapped(
+            rgb, disp, acc, dropped = render_rays_mapped(
                 model, smpl, sp_input, tp_input, latent, ro, rd, nr, fr,
-                chunk=chunk, n_samples=n_samples, white_bkgd=white_bkgd)
+                chunk=chunk, n_samples=n_samples, with_dropped=True,
+                white_bkgd=white_bkgd)
         else:
             out = render_rays(model, smpl, sp_input, tp_input, latent, ro, rd,
                               nr, fr, n_samples, white_bkgd=white_bkgd)
             rgb, disp, acc = out.rgb_map, out.disp_map, out.acc_map
+            dropped = out.raw.n_dropped
         # the whole (rgb, disp, acc) and the ranks' n_dropped in one buffer
         k = mesh.ray_size
         buf = torch.zeros(n * 5 + k, dtype=rgb.dtype, device=rgb.device)
@@ -377,12 +379,10 @@ def make_sharded_render(model, mesh: Mesh, n_samples: int, chunk: int = 0,
         part[:, :3] = rgb
         part[:, 3] = disp
         part[:, 4] = acc
-        if dropped is not None:
-            buf[n * 5 + mesh.ray_index] = dropped.to(rgb.dtype)
+        buf[n * 5 + mesh.ray_index] = torch.as_tensor(dropped).to(rgb.dtype)
         if k > 1:
             dist.all_reduce(buf, op=dist.ReduceOp.SUM,
                             group=mesh.group(RAY_AXIS)[0])
-        outs = (full[:, :3], full[:, 3], full[:, 4])
-        return outs + (buf[n * 5:],) if dropped is not None else outs
+        return full[:, :3], full[:, 3], full[:, 4], buf[n * 5:]
 
     return fn

@@ -21,9 +21,10 @@ cache (``MPSNERF_SERVE_ITEM_CACHE`` entries, default 4), ``render_view``
 through ``ViewRenderer`` (the global path by default, the chunked path
 with ``use_global=False``), ``render_rays``, ``render_camera``,
 ``render_spiral``, ``extract_mesh`` (the model without compaction, as the
-JAX bundle's mesh graph) and ``animate``.  A sharded render is refused, as
-the JAX renderer refuses it for a bundle without a sharded graph: the port
-renders on one device.
+JAX bundle's mesh graph) and ``animate``.  A bundle exported with
+``shard_devices`` renders ``sharded=True`` requests on that many ranks in
+blocks of ``shard_rays`` rays (:mod:`mpsnerf_torch.serve.sharded`); one
+exported without refuses them, as the JAX renderer does.
 """
 
 from __future__ import annotations
@@ -109,18 +110,30 @@ def export_serving_bundle(
     global_compact: bool = True,
     tile: int = 16384,
     mesh_chunk: int = 262144,
+    shard_devices: int = 0,
+    shard_rays_per_device: int = 4096,
 ) -> str:
     """Write ``model`` (built by ``factory.return_model(args)``, with
     trained weights) as a bundle.  ``sp_item``/``tp_item`` are sample items
     of the data set: they fix the request schema (keys and shapes) that
     serving validates, and their view 0 is the warm-up render.
     ``mesh_chunk`` 0 exports no mesh extraction (and no animation).
-    Raises when the factory config does not build a model that takes these
-    weights."""
+    ``shard_devices`` > 0 lets the bundle render sharded requests on that
+    many ranks, in blocks of ``shard_devices * shard_rays_per_device``
+    rays (the ranks start when it is served: the export needs no
+    devices).  Raises when the factory config does not build a model that
+    takes these weights."""
     from mpsnerf_torch import factory
     from mpsnerf_torch.models.mps_nerf import MPSNeRF
     from mpsnerf_torch.serve.server import items_to_npz_bytes
 
+    if shard_devices < 0 or (shard_devices and (
+            shard_rays_per_device <= 0 or (shard_rays_per_device > chunk
+                                           and shard_rays_per_device % chunk))):
+        raise ValueError(
+            f"shard_devices {shard_devices}, shard_rays_per_device "
+            f"{shard_rays_per_device}: a rank's shard must be at most one "
+            f"chunk ({chunk}) or whole chunks")
     factory_args = {k: getattr(args, k) for k in FACTORY_KEYS}
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     factory.return_model(types.SimpleNamespace(**factory_args)
@@ -155,6 +168,9 @@ def export_serving_bundle(
         "mesh_chunk": mesh_chunk if has_mesh else 0,
         "has_anim": bool(has_mesh and "t_vertices" in tp_item),
         "mean_shape": bool(getattr(model, "mean_shape", False)),
+        "shard_devices": int(shard_devices),
+        "shard_rays": int(shard_devices * shard_rays_per_device),
+        "ray_axis": "ray",
         "genders": genders,
         "smpl_fields": list(SMPL_FIELDS),
         "smpl_parents": list(parents),
@@ -176,19 +192,16 @@ def export_serving_bundle(
     return out_dir
 
 
-def _check_not_sharded(sharded: bool) -> None:
-    if sharded:
-        raise ValueError("bundle was exported without shard_devices (the "
-                         "port renders on one device)")
-
-
 class ServedRenderer:
     """A loaded bundle on ``device``: validates requests, encodes sources,
     renders views, cameras and spirals, meshes and animates.  Device work
     is single-flighted under one lock (one card renders one request at a
     time; queueing is the HTTP layer's job), each call in inference mode:
     ``ThreadingHTTPServer`` runs each request on a new thread, and grad
-    mode is per thread."""
+    mode is per thread.  Sharded requests go to the bundle's ranks, one
+    at a time under a lock of their own: the ranks start on the first one
+    without the device lock, and render under it as well where a rank
+    shares this renderer's device (:meth:`close` stops them)."""
 
     def __init__(self, bundle_dir: str, device="cuda"):
         from mpsnerf_torch import factory
@@ -242,10 +255,39 @@ class ServedRenderer:
         self._cache_order: List[str] = []
         self._cache_max = int(os.environ.get("MPSNERF_SERVE_ITEM_CACHE", "4"))
         self.n_cache_hits = 0
+        self.shard_devices = int(m.get("shard_devices", 0))
+        self._shard_lock = threading.Lock()
+        self._ranks = None  # ShardedRanks, started by the first request
+        self._shard_overflows = 0
 
     @property
     def n_overflow_chunks(self) -> int:
-        return self._views[False].n_overflow_chunks
+        """Chunks (sharded: blocks) that overflowed their compaction and
+        rendered again uncompacted."""
+        return self._views[False].n_overflow_chunks + self._shard_overflows
+
+    @property
+    def shard_ranks(self):
+        """The running :class:`~mpsnerf_torch.serve.sharded.ShardedRanks`,
+        or None."""
+        ranks = self._ranks
+        return ranks if ranks is not None and ranks.alive() else None
+
+    def on_ranks(self, fn, *args) -> List:
+        """``fn(*args)`` on every rank of the sharded render (started if
+        there are none; ``fn`` importable by the ranks), between requests;
+        the results in rank order."""
+        if self.shard_devices <= 0:
+            raise ValueError("bundle was exported without shard_devices")
+        with self._shard_lock:
+            return self._ranks_for_request().call(fn, *args)
+
+    def close(self) -> None:
+        """Stop the sharded render's ranks (the next sharded request starts
+        new ones)."""
+        with self._shard_lock:
+            if self._ranks is not None:
+                self._ranks.close()
 
     def _smpl_for(self, gender: int):
         if gender not in self._smpl:
@@ -327,11 +369,71 @@ class ServedRenderer:
             for it, key, side in zip((sp_item, tp_item), keys, ("sp", "tp")):
                 self._keep(it, key, side)
 
-    def _renderer(self, sharded: bool, use_global: Optional[bool]):
+    def _renderer(self, use_global: Optional[bool]):
         """The global path unless ``use_global`` is False or the bundle
         has none."""
-        _check_not_sharded(sharded)
         return self._views[use_global is not False and True in self._views]
+
+    def _ranks_for_request(self):
+        """The ranks, started anew when there are none or they were closed
+        (by :meth:`close`, or by a failed request) (shard lock held).  A
+        rank found dead fails the request that finds it."""
+        from mpsnerf_torch.serve.sharded import ShardedRanks
+
+        if self._ranks is None or self._ranks.closed:
+            self._ranks = ShardedRanks(
+                self.dir, self.shard_devices, int(self.manifest["shard_rays"]),
+                device="cuda" if self.device.type == "cuda" else "cpu",
+                cache_max=self._cache_max)
+        self._ranks.ready()
+        return self._ranks
+
+    def _ranks_share_device(self) -> bool:
+        """A rank runs on this renderer's device: rank r takes
+        ``cuda:{r % device_count}``, and CPU ranks share this host."""
+        if self.device.type != "cuda":
+            return True
+        index = (self.device.index if self.device.index is not None
+                 else torch.cuda.current_device())
+        count = torch.cuda.device_count()
+        return any(r % count == index for r in range(self.shard_devices))
+
+    def _render_sharded(self, sp_item: Dict, tp_item: Dict, ro, rd, nr, fr
+                        ) -> np.ndarray:
+        """Rays (N, 3)/(N,) -> (N, 3) f32 on the bundle's ranks, in blocks
+        of ``shard_rays`` rays (the rest padded with far rays).  A failed
+        rank raises :class:`~mpsnerf_torch.parallel.launch.RankFailed`."""
+        from mpsnerf_torch.serve.sharded import pad_rays_far
+
+        if self.shard_devices <= 0:
+            raise ValueError("bundle was exported without shard_devices")
+        items, keys = {}, {}
+        for item, side in ((sp_item, "sp"), (tp_item, "tp")):
+            self._validate(item, side)
+            keys[side] = self._item_key(item, side)
+            items[side] = {k: item[k] for k in item if k in ATTACHMENTS
+                           or k in _device_keys(item)}
+        rays = np.concatenate(
+            [np.asarray(x, np.float32).reshape(-1, w)
+             for x, w in zip((ro, rd, nr, fr), (3, 3, 1, 1))], axis=1)
+        n = rays.shape[0]
+        if n == 0:
+            return np.zeros((0, 3), np.float32)
+        block = int(self.manifest["shard_rays"])
+        rays = pad_rays_far(rays, -(-n // block) * block)
+        with self._shard_lock:
+            # the ranks start without the device lock: unsharded requests
+            # go on meanwhile
+            ranks = self._ranks_for_request()
+            shared = self._ranks_share_device()
+            with self._lock if shared else contextlib.nullcontext():
+                if shared and self.device.type == "cuda":
+                    # a rank renders on this card: the blocks this
+                    # process's allocator keeps go back to it first
+                    torch.cuda.empty_cache()
+                rgb = ranks.render(keys, items, rays)
+            self._shard_overflows += ranks.last["overflow_blocks"]
+        return rgb[:n]
 
     # -- rendering --------------------------------------------------------
 
@@ -368,8 +470,11 @@ class ServedRenderer:
                     sharded: bool = False,
                     use_global: Optional[bool] = None) -> np.ndarray:
         """Render arbitrary rays (N, 3)/(N,) -> (N, 3) f32 (every ray runs);
-        ``use_global`` False takes the chunked path."""
-        renderer = self._renderer(sharded, use_global)
+        ``use_global`` False takes the chunked path; ``sharded`` the
+        bundle's ranks."""
+        if sharded:
+            return self._render_sharded(sp_item, tp_item, ro, rd, nr, fr)
+        renderer = self._renderer(use_global)
         with self._request(sp_item, tp_item):
             return renderer.render_rays(sp_item, tp_item, ro, rd, nr, fr)
 
@@ -379,8 +484,20 @@ class ServedRenderer:
                     use_global: Optional[bool] = None) -> np.ndarray:
         """Target view ``k`` of ``tp_item``: (H*W, 3), as
         ``ViewRenderer.render_view`` renders it (an explicit ``ray_mask``
-        renders only its rays and fills the rest with 0)."""
-        renderer = self._renderer(sharded, use_global)
+        renders only its rays and fills the rest with 0).  ``sharded``
+        renders the same rays (the body box's, or the mask's) on the
+        bundle's ranks."""
+        if sharded:
+            from mpsnerf_torch.eval.runner import _scatter, view_rays
+
+            views = self._views[False]
+            fill = 1.0 if self.white_bkgd and ray_mask is None else 0.0
+            rays, sel, n_total = view_rays(
+                tp_item, k, "cpu", views._view_ray_mask(tp_item, k, ray_mask))
+            rgb = self._render_sharded(sp_item, tp_item,
+                                       *[x.numpy() for x in rays])
+            return _scatter(rgb, sel, n_total, fill)
+        renderer = self._renderer(use_global)
         with self._request(sp_item, tp_item):
             return renderer.render_view(sp_item, tp_item, k, ray_mask)
 

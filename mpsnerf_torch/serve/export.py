@@ -10,11 +10,12 @@ loads the experiment's newest checkpoint and writes a bundle that
 ``python -m mpsnerf_torch.serve.server --bundle bundles/actor1`` serves.
 The model is ``factory.return_model`` of the flags; ``--N_samples`` and
 ``--white_bkgd`` set the render; the test split's first item fixes the
-request schema.  The JAX CLI's XLA options are refused:
-``--shard_devices`` > 0 (the port renders on one device) and
-``--export_platforms`` (nothing is lowered); ``--serve_headroom`` (the
-JAX graphs' static capacities) does not exist here, the port's
-capacities being exact.
+request schema.  ``--shard_devices N`` lets the bundle render
+``sharded=1`` requests on N ranks (blocks of ``N * 4096`` rays; the ranks
+start when the bundle is served, so the export needs no devices).
+``--export_platforms`` is refused (nothing is lowered);
+``--serve_headroom`` (the JAX graphs' static capacities) does not exist
+here, the port's capacities being exact.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ def main(argv=None) -> str:
     parser.add_argument("--serve_chunk", type=int, default=4096,
                         help="rays per chunk of the chunked path")
     parser.add_argument("--shard_devices", type=int, default=0,
-                        help="refused above 0: the port renders on one "
-                             "device")
+                        help="ranks of the sharded render (0: none); each "
+                             "takes 4096 rays of a block")
     parser.add_argument("--export_platforms", type=str, default=None,
                         help="refused: the port lowers no graphs")
     parser.add_argument("--allow_random_init", type=int, default=0,
@@ -48,10 +49,6 @@ def main(argv=None) -> str:
                         help="points per density query of /mesh and "
                              "/animate; 0 exports no mesh extraction")
     args = parse_args(argv, parser)
-    if args.shard_devices > 0:
-        raise SystemExit(
-            f"--shard_devices {args.shard_devices}: a port bundle renders on "
-            "one device (multi-device serving is not ported)")
     if args.export_platforms:
         raise SystemExit(
             f"--export_platforms {args.export_platforms}: a port bundle "
@@ -90,7 +87,7 @@ def main(argv=None) -> str:
         dict(tp_item), chunk=args.serve_chunk, n_samples=args.N_samples,
         white_bkgd=bool(args.white_bkgd),
         global_compact=bool(args.serve_global), tile=args.serve_tile,
-        mesh_chunk=args.serve_mesh_chunk)
+        mesh_chunk=args.serve_mesh_chunk, shard_devices=args.shard_devices)
     sizes = {f: os.path.getsize(os.path.join(out_dir, f))
              for f in sorted(os.listdir(out_dir))}
     print(f"bundle written to {out_dir} ({sum(sizes.values()) / 1e6:.1f} MB):")

@@ -12,15 +12,17 @@ protocol and routes, so that a client of one works against the other:
                               (H*W, 3) float32 view K.  Optional key
                               ``ray_mask`` renders only masked rays.
                               ``&global=0`` takes the chunked path;
-                              ``&sharded=1`` is refused (400): the port
-                              renders on one device.
+                              ``&sharded=1`` renders on the bundle's ranks
+                              (400 for a bundle exported without
+                              ``shard_devices``; 500 when a rank fails).
     POST /camera?h=H&w=W   -> same body plus ``camera.K``, ``camera.R``,
                               ``camera.T``: renders that pinhole camera;
-                              ``.npy`` (H*W, 3).
+                              ``.npy`` (H*W, 3); ``&sharded=1`` as above.
     POST /spiral?frames=N  -> N spiral cameras around the subject; ``.npy``
                               (N, H, W, 3); ``&h=``/``&w=`` override the
                               bundle's resolution; ``&format=video&fps=3``
-                              returns an MJPG ``.avi`` (``eval/video.py``).
+                              returns an MJPG ``.avi`` (``eval/video.py``);
+                              ``&sharded=1`` as above.
     POST /mesh?n=256       -> the subject's mesh in the tp pose; ``.npz``
                               with ``verts`` (V, 3) f32 and ``tris``
                               (T, 3); ``&threshold=`` sets the iso level.
@@ -49,6 +51,7 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from mpsnerf_torch.parallel.launch import RankFailed
 from mpsnerf_torch.serve.bundle import ServedRenderer, load_serving_bundle
 
 __all__ = ["items_to_npz_bytes", "npz_bytes_to_items", "BundleServer",
@@ -119,6 +122,8 @@ def _counts(r: ServedRenderer) -> Dict:
         "global_fallbacks": 0,
         "item_cache_hits": r.n_cache_hits,
         "has_global": r.manifest["has_global"],
+        "shard_devices": r.shard_devices,
+        "shard_ranks_alive": r.shard_ranks is not None,
     }
 
 
@@ -274,12 +279,16 @@ class BundleServer:
                 except (ValueError, KeyError, IndexError) as e:
                     self._json(400, {"error": f"{type(e).__name__}: {e}"})
                     return
+                except RankFailed as e:
+                    self._json(500, {"error": f"{type(e).__name__}: {e}"})
+                    return
                 buf = io.BytesIO()
                 np.save(buf, out)
                 self._send(200, buf.getvalue(), "application/octet-stream")
 
         self._httpd = ThreadingHTTPServer((host, port), Handler)
         self._thread: Optional[threading.Thread] = None
+        self._stopped = False
 
     @property
     def address(self) -> Tuple[str, int]:
@@ -295,10 +304,17 @@ class BundleServer:
         self._httpd.serve_forever()
 
     def stop(self) -> None:
+        """Stop serving, then every bundle's sharded-render ranks (a second
+        call does nothing)."""
+        if self._stopped:
+            return
+        self._stopped = True
         self._httpd.shutdown()
         self._httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=10)
+        for r in self.renderers.values():
+            r.close()
 
 
 def main(argv=None) -> None:

@@ -96,8 +96,13 @@ def test_port_imports_without_jax_flax_cv2_or_jax_package():
         "    importlib.import_module(n)\n"
         "need = {'mpsnerf_torch.train.trainer', 'mpsnerf_torch.train.losses',\n"
         "        'mpsnerf_torch.train.checkpoint', 'mpsnerf_torch.smpl.mesh',\n"
-        "        'mpsnerf_torch.tools.knn_variant_probe'}\n"
-        "assert need <= set(names) and len(names) >= 31, names\n"
+        "        'mpsnerf_torch.tools.knn_variant_probe',\n"
+        "        'mpsnerf_torch.serve.sharded',\n"
+        "        'mpsnerf_torch.tools.validate_dataset',\n"
+        "        'mpsnerf_torch.tools.train_proof',\n"
+        "        'mpsnerf_torch.tools.generalization_proof',\n"
+        "        'mpsnerf_torch.tools.pair_train_proof'}\n"
+        "assert need <= set(names) and len(names) >= 76, names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

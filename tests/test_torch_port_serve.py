@@ -361,8 +361,9 @@ def test_http_routes(setup, tmp_path):
 
 def test_export_cli_from_a_checkpoint(setup, tmp_path):
     """``python -m mpsnerf_torch.serve.export`` on a port checkpoint: the
-    bundle holds the checkpoint's weights; the XLA options and a missing
-    checkpoint are refused."""
+    bundle holds the checkpoint's weights; ``--shard_devices 2`` exports a
+    sharded bundle (blocks of 2 x 4096 rays); ``--export_platforms`` and a
+    missing checkpoint are refused."""
     s = setup
     base = str(tmp_path / "logs")
     argv = ["--config", CONFIG, "--basedir", base, "--image_scaling",
@@ -381,6 +382,11 @@ def test_export_cli_from_a_checkpoint(setup, tmp_path):
     assert (m["chunk"], m["n_samples"], m["mesh_chunk"]) == (
         CHUNK, s["args"].N_samples, MESH_CHUNK)
     assert m["image_shape"] == [3, 3, 32, 32]
-    for extra in (["--shard_devices", "2"], ["--export_platforms", "tpu"]):
-        with pytest.raises(SystemExit, match=extra[0]):
-            t_export.main(argv + extra)
+    assert (m["shard_devices"], m["shard_rays"]) == (0, 0)
+    out = t_export.main(argv + ["--bundle_dir", str(tmp_path / "sharded"),
+                                "--shard_devices", "2"])
+    m = load_serving_bundle(out, device="cpu").manifest
+    assert (m["shard_devices"], m["shard_rays"], m["ray_axis"]) == (
+        2, 8192, "ray")
+    with pytest.raises(SystemExit, match="--export_platforms"):
+        t_export.main(argv + ["--export_platforms", "tpu"])
