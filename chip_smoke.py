@@ -11,9 +11,11 @@ non-zero):
      count the 1-NN kernels' instructions per pair in their SASS (fails
      where they differ from what the bounds assume);
   2. every kernel against its plain PyTorch version on the card: K1's
-     bucket build on the rig, the posed rig, 1, 31 and 33 vertices and a
-     20,000-vertex table (table and boxes bit-equal); the exact 1-NN (K1,
-     bucketed and culled) at 131,072 x 6890, at the fine
+     bucket build on the rig, the posed rig, 1, 31, 33, 8192, 8193,
+     16,384, 16,385 and 20,000 vertices, and on tables whose vertices are
+     all equal, lie on a plane or (all but two) in one Morton cell, at
+     6890 and 16,385 vertices (table and boxes bit-equal); the exact 1-NN
+     (K1, bucketed and culled) at 131,072 x 6890, at the fine
      pre-pass shape of the full-width view, on those queries in random
      order, and on a 20,000-vertex table (the streamed path): ids 100 %
      equal and d2 bit-equal; the packed-key 1-NN at 131,072 x 6890 (ids
@@ -61,7 +63,10 @@ non-zero):
      (what any exact 1-NN must do: the bytes, and one pair per query), the
      pairs it evaluated and the time the card needs for those and for
      every pair (the instructions a pair counted in phase 1's SASS, over
-     132 SMs x 128 lanes x the card's maximum SM clock); for K2 also the
+     132 SMs x 128 lanes x the card's maximum SM clock); for the bucket
+     build on the posed rig its bytes-only bound, the launch floor (a
+     one-element torch op), ``torch.sort`` of its keys as a yardstick and
+     the SM cycles of its phases; for K2 also the
      RGB, the other image layout, and the backward and double backward on
      each captured set beside the yardstick of autograd through
      ``F.grid_sample`` (not the same function at the border);
@@ -420,6 +425,42 @@ def fail(msg):
     raise SystemExit(1)
 
 
+def bucket_tables(verts):
+    """Phase 2's tables for the bucket build: the rig, 1, 31 and 33
+    vertices (one run, short), 8192 and 8193 (the last full warp run and
+    one more; the edge between the merge in shared memory and in the
+    scratch), 16,384 and 16,385 (a power of two and one more), the
+    20,000-vertex streamed table, and degenerate tables (every vertex
+    equal, one flat axis, all but two vertices in one Morton cell, so the
+    cell's order goes by id, and one axis of zeros of both signs), at 6890
+    and in the scratch at 16,385.  ``torch.equal`` holds -0 equal to +0:
+    the kernel orders -0 below +0 in a box, the plain ``amin``/``amax``
+    return either."""
+    import torch
+
+    big = streamed_table(verts, 1)
+    tables = [("rig", verts), ("1 vertex", verts[:1]),
+              ("31 vertices", verts[:31]), ("33 vertices", verts[:33])]
+    tables += [(f"{n} vertices", big[:n])
+               for n in (8192, 8193, 16384, 16385)]
+    tables.append(("jittered rig (scratch)", big))
+    g = torch.Generator(device=verts.device).manual_seed(2)
+    for n in (6890, 16385):
+        flat = big[:n].clone()
+        flat[:, 1] = 0.5
+        zeros = big[:n].clone()
+        zeros[:, 1] = 0.0
+        zeros[::2, 1] = -0.0
+        cell = 0.1234 + 1e-6 * torch.rand(n, 3, generator=g,
+                                          device=verts.device)
+        cell[0], cell[-1] = -1.0, 1.0
+        tables += [(f"{n} equal vertices", verts[:1].expand(n, 3)),
+                   (f"{n} vertices on a plane", flat),
+                   (f"{n} vertices in one Morton cell", cell),
+                   (f"{n} vertices on signed zeros", zeros)]
+    return tables
+
+
 def knn_pairs(q, v, buckets):
     """The query-vertex pairs K1 evaluates on these inputs (its counter,
     passed only here; the path passes none)."""
@@ -435,7 +476,7 @@ def knn_pairs(q, v, buckets):
 
 def compare_buckets(label, v):
     """The bucket-build kernel against its plain version: table and boxes
-    bit-equal."""
+    ``torch.equal`` (bit-equal, but for the sign of a zero box bound)."""
     import torch
 
     from mpsnerf_torch.ops import knn
@@ -2874,18 +2915,22 @@ def maybe_ms(make, reps):
         return None
 
 
-def buckets_record(v, train_launches, serving_launches, clock_mhz):
+def buckets_record(v, train_launches, serving_launches):
     """The bucket build's line of phase 7, on the posed rig: kernel, plain
-    version and the card's bound (each vertex read once, the table and
-    boxes written once; the bitonic sort's compare-exchanges, ~4
-    instructions each, over the card's issue rate).  No PyTorch call
-    builds the same table."""
+    version and the card's bound, bytes only (each vertex read once, the
+    table and boxes written once: what any build must move, whatever its
+    design).  Beside it, not the bound: the device time of a one-element
+    torch op (the card's launch floor), and ``torch.sort`` of the table's
+    (code << 32 | id) keys as a yardstick in the library column (the sort
+    alone, not the same function: no PyTorch call builds the table)."""
+    import torch
+
     from mpsnerf_torch.ops import knn
 
     nv = v.shape[0]
     nb = -(-nv // knn.BUCKET)
-    p2 = 1 << (nv - 1).bit_length()
-    stages = p2.bit_length() * (p2.bit_length() - 1) // 2
+    keys = (knn.morton_codes(v) << 32) | torch.arange(nv, device=v.device)
+    one = torch.zeros(1, device=v.device)
     with uncounted():
         rec = {
             "name": "vertex_buckets", "route": "cuda", "source": KNN_SOURCE,
@@ -2898,16 +2943,19 @@ def buckets_record(v, train_launches, serving_launches, clock_mhz):
                                    10),
             "host_us": host_us(lambda: knn.build_vertex_buckets_cuda(v), 50),
             "plain_ms": cuda_ms(lambda: knn.build_vertex_buckets_plain(v), 10),
-            "library_ms": None,
+            "library_ms": cuda_ms(lambda: torch.sort(keys), 20),
+            "library_call": f"torch.sort of the {nv} int64 keys: a "
+                            "yardstick, the sort alone, not the same function",
+            "launch_floor_ms": device_ms(lambda: one.add_(1), 50),
         }
-    bytes_ms = (nv * 12 + nb * knn.BUCKET * 16 + nb * 32) / HBM_BYTES_S * 1e3
-    ops_ms = p2 // 2 * stages * 4 / (FP32_LANES * clock_mhz * 1e6) * 1e3
-    rec["bound_ms"] = max(bytes_ms, ops_ms)
-    rec["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    rec["bound_ms"] = (nv * 12 + nb * knn.BUCKET * 16 + nb * 32) \
+        / HBM_BYTES_S * 1e3
+    rec["bound_by"] = "bytes"
     log(f"[7] bucket build {nv} vertices: kernel {rec['ms']:.4f} ms (device "
         f"{fmt(rec['device_ms'])}, host {rec['host_us']:.1f} us), plain "
         f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.6f} ms "
-        f"({rec['bound_by']})")
+        f"(bytes); launch floor {fmt(rec['launch_floor_ms'], '.5f')} ms; "
+        f"torch.sort of the keys {rec['library_ms']:.4f} ms (yardstick)")
     return rec
 
 
@@ -4840,10 +4888,7 @@ def main(argv=None):
     base = item["vertices"][rng.integers(0, 6890, 131072)]
     q = torch.from_numpy((base + rng.normal(size=base.shape) * 0.05)
                          .astype(np.float32)).to(dev)
-    for label, v in (("rig", verts), ("1 vertex", verts[:1]),
-                     ("31 vertices", verts[:31]), ("33 vertices", verts[:33]),
-                     ("jittered rig (scratch sort)",
-                      streamed_table(verts, 1))):
+    for label, v in bucket_tables(verts):
         compare_buckets(label, v.contiguous())
     knn_err, _ = compare_knn("near the vertices", q, verts)
     packed_err = compare_packed(q, verts)
@@ -5039,8 +5084,7 @@ def main(argv=None):
         f"({fine['bound_by']}); its {fine['pairs']} pairs at "
         f"{fine['pairs_bound_ms']:.3f} ms, brute force at "
         f"{fine['brute_force_bound_ms']:.3f} ms")
-    records.append(buckets_record(fine_v, train_launches, serving_launches,
-                                  clock_mhz))
+    records.append(buckets_record(fine_v, train_launches, serving_launches))
     pn, pnv = probe["shape"]
     default = probe["variants"]["qpt4_tile1152"]
     best = min(probe["variants"].items(), key=lambda kv: kv[1]["ms"])

@@ -22,11 +22,13 @@
 // into buckets of 32 vertices in Morton order over its bounding box, each
 // bucket with its axis-aligned box, each vertex with its original id
 // (float4: x, y, z, id bits), the ids ascending within a bucket.  The
-// build is the second kernel here (vertex_buckets_kernel): one block sorts
-// the (Morton code, id) keys, so a table costs one launch, not the ~48
-// small ones of its plain PyTorch version (knn.py:build_vertex_buckets_
-// plain, which it equals bit for bit): the steps that build a table are
-// bound by the host's launches.
+// build is the second kernel here (vertex_buckets_kernel): one block, so a
+// table costs one launch, not the ~48 small ones of its plain PyTorch
+// version (knn.py:build_vertex_buckets_plain, which it equals bit for
+// bit).  It is bound by latency: its dependent steps and its block
+// barriers, not bytes.  Each warp sorts runs of 256 keys in registers
+// with shuffles and no block barrier, and merge-path rounds join them, one
+// barrier a round (the note above the kernel).
 //
 // A warp takes 32 consecutive queries (in the compacted order, samples of
 // one or two rays: close together) and:
@@ -299,41 +301,236 @@ nearest_vertex_kernel(const float* __restrict__ q, int64_t n,
 }
 
 // ---- the bucket build ----------------------------------------------------
+//
+// What bounds it.  Not bytes: a 6890-vertex table is 83 KB read and 118 KB
+// written, ~0.06 us at 3.35 TB/s, far below one launch.  The build is one
+// block (a table is one launch, a serial point before the search), so its
+// time is that of its dependent steps on one SM: the issue of its integer
+// instructions (a compare or a select of a 64-bit key is two, at half the
+// fp32 rate), its shuffles, and the block barriers between the steps.  A
+// block-wide bitonic sort of the rig's keys (8192 padded) would take 91
+// barrier-separated stages.
+//
+// The design takes 3 + ceil(log2(runs)) barriers, 8 at the rig's 27 runs.
+// A run is 256 keys (code << 32 | id); the last one is padded with ~0.
+//   1. The box.  Warp w owns runs w, w + 32, ...; lane l holds vertex
+//      256 q + l + 32 r of run q in register r (coalesced loads).  Warp,
+//      then block min/max; warp 0 writes the frame.  Two barriers.
+//   2. The runs.  Each warp makes the keys of its run and sorts them in
+//      registers with a bitonic network that puts register r of lane l at
+//      position 8 l + r (the input order is free, so nothing is
+//      transposed): strides below 8 are compare-exchanges inside a lane,
+//      strides 8-128 __shfl_xor_sync.  No barrier until the runs are
+//      stored.
+//   3. The merge.  Rounds of merge path over a ping-pong pair of key
+//      buffers: in each, a thread binary-searches the diagonal of its 8
+//      outputs in the pair of runs that holds them and merges them; the
+//      first run's ids all precede the second's, so a stable merge on the
+//      32-bit codes gives (code, id) order.  One barrier a round.  Only
+//      the nv real keys are merged.  Up to 8192 vertices both buffers are
+//      in shared memory; above, in a scratch in global memory that the
+//      wrapper allocates, with the same code.  Key i of a buffer is
+//      stored at slot(i), so a warp's accesses to 8 consecutive keys a
+//      lane touch every bank pair twice instead of one pair 16 times.
+//   4. The buckets.  A warp a bucket: its 32 ids sorted across the warp
+//      with shuffles, its float4 rows written, its box reduced by redux on
+//      the coordinates as ordered integers (exact; -0 below +0).
+// The arithmetic is the plain version's (knn.py:build_vertex_buckets_
+// plain), so the result is bit-equal to it, but for one sign: a bucket
+// holding both zeros on an axis gets -0 low and +0 high here, either
+// zero from the plain amin/amax (equal as values, so torch.equal holds).
+// Keys are unique, so any correct sort gives the plain order.  Tensor
+// cores, TMA and wgmma have no work here: there is no product, and the
+// table is read once with coalesced loads.  A cluster could spread the
+// runs over SMs; one block is kept.  A merge thread writes 8 outputs: 16
+// took 13 % more merge cycles at 6890 vertices and 41 % more at 20,000.
+// What is left bounds it (mpsnerf_torch/tools/bucket_build_phases.py on an
+// H100 SXM at 6890 vertices): the merge rounds take ~40 % of the SM
+// cycles, the warp runs ~32 %, the bucket pass ~22 %, the box ~6 %; each
+// is integer issue and shuffles on the one SM, not barrier waits.
 
 constexpr int kBuildThreads = 1024;
-constexpr int kMortonBits = 10;
-constexpr int kMaxSharedKeys = 16384;  // 128 KB of keys in shared memory
+constexpr int kBuildWarps = kBuildThreads / 32;
+constexpr int kMortonTop = (1 << 10) - 1;  // a 1024^3 grid
+constexpr int kPerLane = 8;                // keys a lane sorts; a thread
+                                           // merges as many
+constexpr int kRun = 32 * kPerLane;        // keys a warp sorts: 256
+constexpr int kMaxSharedKeys = 8192;       // both buffers in shared: 128 KB
+constexpr unsigned long long kPad = ~0ull;
 
-__device__ __forceinline__ unsigned long long spread3(unsigned x) {
-  unsigned long long r = 0;
-#pragma unroll
-  for (int b = 0; b < kMortonBits; ++b)
-    r |= static_cast<unsigned long long>((x >> b) & 1u) << (3 * b);
-  return r;
+// Built with -DMPSNERF_BUILD_STAMPS (mpsnerf_torch/tools/
+// bucket_build_phases.py), thread 0 reads the SM clock at the start and
+// after each phase; the library the wrappers load has no stamps.
+#ifdef MPSNERF_BUILD_STAMPS
+__device__ long long build_stamps[5];
+#define BUILD_STAMP(n) \
+  if (threadIdx.x == 0) build_stamps[n] = clock64()
+#else
+#define BUILD_STAMP(n)
+#endif
+
+// where key i of a buffer is stored: permuted within its aligned group of
+// 16 by bits 4-7 of i
+__device__ __forceinline__ int slot(int i) { return i ^ ((i >> 4) & 15); }
+
+// bit b of a 10-bit x at bit 3 b
+__device__ __forceinline__ unsigned spread3(unsigned x) {
+  x = (x ^ (x << 16)) & 0xff0000ffu;
+  x = (x ^ (x << 8)) & 0x0300f00fu;
+  x = (x ^ (x << 4)) & 0x030c30c3u;
+  x = (x ^ (x << 2)) & 0x09249249u;
+  return x;
 }
 
-// One block: the table's box, each vertex's Morton key (code << 32 | id)
-// on a 1024^3 grid over it, a bitonic sort of the keys (in shared memory,
-// or in `scratch` above kMaxSharedKeys), the last bucket padded with the
-// last vertex, then a warp per bucket sorts its ids, writes its rows and
-// reduces its box.  The arithmetic is the plain version's, op for op.
+// the cell of p on one axis: (p - lo) * scale, truncated and clamped to
+// [0, 1023].  Clamping first and truncating after gives the same cell;
+// 2^23 + f rounded toward zero is 2^23 + floor(f), whose low mantissa
+// bits are the cell (an fp32 add, not a conversion).
+__device__ __forceinline__ unsigned morton_cell(float p, float lo,
+                                                float scale) {
+  const float f = fminf(fmaxf(__fmul_rn(__fsub_rn(p, lo), scale), 0.f),
+                        static_cast<float>(kMortonTop));
+  return __float_as_uint(__fadd_rz(f, 8388608.f)) & kMortonTop;
+}
+
+// an ordered integer of a float: unsigned order is the float order
+__device__ __forceinline__ unsigned ordered(float f) {
+  const unsigned u = __float_as_uint(f);
+  return u ^ ((u >> 31) ? 0xffffffffu : 0x80000000u);
+}
+
+__device__ __forceinline__ float unordered(unsigned u) {
+  return __uint_as_float(u ^ ((u >> 31) ? 0x80000000u : 0xffffffffu));
+}
+
+// the run's vertices of this lane: vertex first + 32 r in register r
+__device__ __forceinline__ void load_run(const float* __restrict__ v, int nv,
+                                         int first, float (&x)[kPerLane],
+                                         float (&y)[kPerLane],
+                                         float (&z)[kPerLane]) {
+#pragma unroll
+  for (int r = 0; r < kPerLane; ++r) {
+    const int i = first + 32 * r;
+    if (i < nv) {
+      const float* p = v + 3 * static_cast<int64_t>(i);
+      x[r] = p[0];
+      y[r] = p[1];
+      z[r] = p[2];
+    }
+  }
+}
+
+// a warp's 256 keys ascending, register r of lane l at position 8 l + r
+__device__ __forceinline__ void sort_run(unsigned long long (&k)[kPerLane],
+                                         int lane) {
+#pragma unroll
+  for (int ls = 1; ls <= 8; ++ls) {
+    const int size = 1 << ls;  // the sorted blocks this stage makes
+#pragma unroll
+    for (int lj = ls - 1; lj >= 0; --lj) {
+      const int j = 1 << lj;
+      if (j < kPerLane) {
+#pragma unroll
+        for (int r = 0; r < kPerLane; ++r) {
+          if (r & j) continue;
+          const bool up = ((kPerLane * lane + r) & size) == 0;
+          const unsigned long long a = k[r], b = k[r | j];
+          const bool swap = (a > b) == up;
+          k[r] = swap ? b : a;
+          k[r | j] = swap ? a : b;
+        }
+      } else {
+        // the partner is lane ^ m; the lower lane of the pair keeps the
+        // smaller key where the block ascends
+        const int m = j / kPerLane;
+        const bool keep_min =
+            ((lane & m) == 0) == (((kPerLane * lane) & size) == 0);
+#pragma unroll
+        for (int r = 0; r < kPerLane; ++r) {
+          const unsigned long long o = __shfl_xor_sync(kFull, k[r], m);
+          k[r] = ((o < k[r]) == keep_min) ? o : k[r];
+        }
+      }
+    }
+  }
+}
+
+// the Morton code of a key
+__device__ __forceinline__ unsigned code_of(unsigned long long key) {
+  return static_cast<unsigned>(key >> 32);
+}
+
+// outputs o .. o + 7 (those below nv) of merging the pair of sorted runs
+// of `len` keys that holds o; the second run may be short or empty.  The
+// first run holds vertices a0 .. a0 + len - 1 and the second the next
+// ones, so (code, id) order is code order with the first run first on a
+// tie: only the codes are compared.
+__device__ __forceinline__ void merge_chunk(const unsigned long long* src,
+                                            unsigned long long* dst, int nv,
+                                            int o, int len) {
+  const int a0 = o & ~(2 * len - 1), b0 = a0 + len;
+  const int la = min(len, nv - a0), lb = max(0, min(len, nv - b0));
+  const int d = o - a0;  // the diagonal
+  int lo = max(0, d - lb), hi = min(d, la);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (code_of(src[slot(a0 + mid)]) <=
+        code_of(src[slot(b0 + d - 1 - mid)]))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  int i = lo, j = d - lo;
+  unsigned long long a = i < la ? src[slot(a0 + i)] : kPad;
+  unsigned long long b = j < lb ? src[slot(b0 + j)] : kPad;
+  const int out = slot(o);  // o is a multiple of 8: slot(o + r) = out ^ r
+#pragma unroll
+  for (int r = 0; r < kPerLane; ++r) {
+    if (o + r >= nv) break;
+    const bool take_a = code_of(a) <= code_of(b);
+    dst[out ^ r] = take_a ? a : b;
+    if (r + 1 < kPerLane) {
+      i += take_a;
+      j += !take_a;
+      const unsigned long long next =
+          take_a ? (i < la ? src[slot(a0 + i)] : kPad)
+                 : (j < lb ? src[slot(b0 + j)] : kPad);
+      a = take_a ? next : a;
+      b = take_a ? b : next;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kBuildThreads)
-vertex_buckets_kernel(const float* __restrict__ v, int nv, int pow2,
-                      unsigned long long* __restrict__ scratch,
+vertex_buckets_kernel(const float* __restrict__ v, int nv,
+                      unsigned long long* scratch,
                       float4* __restrict__ table, float4* __restrict__ boxes) {
   extern __shared__ unsigned long long skeys[];
-  __shared__ float red[6][kBuildThreads / 32];
+  __shared__ float red[6][kBuildWarps];
   __shared__ float frame[6];  // lo xyz, scale xyz
-  unsigned long long* keys = scratch ? scratch : skeys;
+  const int runs = (nv + kRun - 1) / kRun;
+  unsigned long long* src = scratch ? scratch : skeys;
+  unsigned long long* dst = src + runs * kRun;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  BUILD_STAMP(0);
 
+  // 1. the box
+  float x[kPerLane], y[kPerLane], z[kPerLane];
   float lo[3] = {INFINITY, INFINITY, INFINITY};
   float hi[3] = {-INFINITY, -INFINITY, -INFINITY};
-  for (int i = t; i < nv; i += kBuildThreads) {
+  for (int q = warp; q < runs; q += kBuildWarps) {
+    const int first = q * kRun + lane;
+    load_run(v, nv, first, x, y, z);
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      lo[a] = fminf(lo[a], v[3 * i + a]);
-      hi[a] = fmaxf(hi[a], v[3 * i + a]);
+    for (int r = 0; r < kPerLane; ++r) {
+      if (first + 32 * r < nv) {
+        lo[0] = fminf(lo[0], x[r]);
+        lo[1] = fminf(lo[1], y[r]);
+        lo[2] = fminf(lo[2], z[r]);
+        hi[0] = fmaxf(hi[0], x[r]);
+        hi[1] = fmaxf(hi[1], y[r]);
+        hi[2] = fmaxf(hi[2], z[r]);
+      }
     }
   }
 #pragma unroll
@@ -346,75 +543,99 @@ vertex_buckets_kernel(const float* __restrict__ v, int nv, int pow2,
     }
   }
   __syncthreads();
-  if (t < 3) {
-    float l = INFINITY, h = -INFINITY;
-    for (int w = 0; w < kBuildThreads / 32; ++w) {
-      l = fminf(l, red[t][w]);
-      h = fmaxf(h, red[3 + t][w]);
-    }
-    frame[t] = l;
-    // reciprocal(max(hi - lo, 1e-30)) * 1023, as the plain version rounds
-    frame[3 + t] = __fmul_rn(__frcp_rn(fmaxf(__fsub_rn(h, l), 1e-30f)),
-                             static_cast<float>((1 << kMortonBits) - 1));
-  }
-  __syncthreads();
-  for (int i = t; i < pow2; i += kBuildThreads) {
-    unsigned long long key = ~0ull;
-    if (i < nv) {
-      unsigned long long code = 0;
+  if (warp == 0) {
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const float f = __fmul_rn(__fsub_rn(v[3 * i + a], frame[a]),
-                                  frame[3 + a]);
-        const long long c = static_cast<long long>(f);  // truncation
-        const unsigned cell = static_cast<unsigned>(
-            c < 0 ? 0 : (c > (1 << kMortonBits) - 1 ? (1 << kMortonBits) - 1
-                                                     : c));
-        code |= spread3(cell) << a;
+    for (int a = 0; a < 3; ++a) {
+      const float l = warp_min(red[a][lane]);
+      const float h = warp_max(red[3 + a][lane]);
+      if (lane == 0) {
+        frame[a] = l;
+        // reciprocal(max(hi - lo, 1e-30)) * 1023, as the plain version
+        // rounds
+        frame[3 + a] = __fmul_rn(__frcp_rn(fmaxf(__fsub_rn(h, l), 1e-30f)),
+                                 static_cast<float>(kMortonTop));
       }
-      key = (code << 32) | static_cast<unsigned>(i);
     }
-    keys[i] = key;
   }
   __syncthreads();
-  for (int k = 2; k <= pow2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = t; i < pow2; i += kBuildThreads) {
-        const int l = i ^ j;
-        if (l > i) {
-          const unsigned long long a = keys[i], b = keys[l];
-          if ((a > b) == ((i & k) == 0)) {
-            keys[i] = b;
-            keys[l] = a;
-          }
-        }
+  BUILD_STAMP(1);
+
+  // 2. the runs, each sorted by its warp
+  for (int q = warp; q < runs; q += kBuildWarps) {
+    const int first = q * kRun + lane;
+    // with one run a warp its vertices are still in the registers
+    if (runs > kBuildWarps) load_run(v, nv, first, x, y, z);
+    unsigned long long k[kPerLane];
+#pragma unroll
+    for (int r = 0; r < kPerLane; ++r) {
+      const int i = first + 32 * r;
+      k[r] = kPad;
+      if (i < nv) {
+        const unsigned code = spread3(morton_cell(x[r], frame[0], frame[3])) |
+                              spread3(morton_cell(y[r], frame[1], frame[4]))
+                                  << 1 |
+                              spread3(morton_cell(z[r], frame[2], frame[5]))
+                                  << 2;
+        k[r] = static_cast<unsigned long long>(code) << 32 |
+               static_cast<unsigned>(i);
       }
-      __syncthreads();
     }
+    sort_run(k, lane);
+    const int out = slot(q * kRun + kPerLane * lane);
+#pragma unroll
+    for (int r = 0; r < kPerLane; ++r) src[out ^ r] = k[r];
   }
+  __syncthreads();
+  BUILD_STAMP(2);
+
+  // 3. the merge rounds
+  for (int len = kRun; len < nv; len <<= 1) {
+    for (int o = kPerLane * t; o < nv; o += kPerLane * kBuildThreads)
+      merge_chunk(src, dst, nv, o, len);
+    __syncthreads();
+    unsigned long long* done = dst;
+    dst = src;
+    src = done;
+  }
+  BUILD_STAMP(3);
+
+  // 4. the buckets, the last one padded with the last vertex
   const int nb = (nv + kBucket - 1) / kBucket;
-  const unsigned last = static_cast<unsigned>(keys[nv - 1] & 0xffffffffu);
-  for (int b = warp; b < nb; b += kBuildThreads / 32) {
+  const unsigned last =
+      static_cast<unsigned>(src[slot(nv - 1)] & 0xffffffffu);
+  for (int b = warp; b < nb; b += kBuildWarps) {
     const int i = b * kBucket + lane;
-    unsigned id = i < nv ? static_cast<unsigned>(keys[i] & 0xffffffffu) : last;
+    unsigned id =
+        i < nv ? static_cast<unsigned>(src[slot(i)] & 0xffffffffu) : last;
     // bitonic sort of the bucket's 32 ids across the warp, ascending
+#pragma unroll
     for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
       for (int j = k >> 1; j > 0; j >>= 1) {
         const unsigned other = __shfl_xor_sync(kFull, id, j);
-        const bool up = (lane & k) == 0;
-        const bool low = (lane & j) == 0;
-        id = (low == up) ? min(id, other) : max(id, other);
+        const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+        id = ((other < id) == keep_min) ? other : id;
       }
     }
-    const float x = v[3 * id], y = v[3 * id + 1], z = v[3 * id + 2];
-    table[i] = make_float4(x, y, z, __int_as_float(static_cast<int>(id)));
-    const float lx = warp_min(x), ly = warp_min(y), lz = warp_min(z);
-    const float hx = warp_max(x), hy = warp_max(y), hz = warp_max(z);
+    const float* p = v + 3 * static_cast<int64_t>(id);
+    const float vx = p[0], vy = p[1], vz = p[2];
+    table[i] = make_float4(vx, vy, vz, __int_as_float(static_cast<int>(id)));
+    const unsigned ox = ordered(vx), oy = ordered(vy), oz = ordered(vz);
+    const float lx = unordered(__reduce_min_sync(kFull, ox));
+    const float ly = unordered(__reduce_min_sync(kFull, oy));
+    const float lz = unordered(__reduce_min_sync(kFull, oz));
+    const float hx = unordered(__reduce_max_sync(kFull, ox));
+    const float hy = unordered(__reduce_max_sync(kFull, oy));
+    const float hz = unordered(__reduce_max_sync(kFull, oz));
     if (lane == 0) {
       boxes[2 * b] = make_float4(lx, ly, lz, 0.f);
       boxes[2 * b + 1] = make_float4(hx, hy, hz, 0.f);
     }
   }
+#ifdef MPSNERF_BUILD_STAMPS
+  __syncthreads();
+#endif
+  BUILD_STAMP(4);
 }
 
 constexpr int kMaxDevices = 64;
@@ -491,8 +712,8 @@ extern "C" int mpsnerf_nearest_vertex(const void* q, int64_t n,
 
 // v: (nv, 3) f32 contiguous; table: (nb * 32, 4) f32 and boxes: (nb, 8)
 // f32, nb = ceil(nv / 32), both contiguous and 16-byte aligned; scratch:
-// next_pow2(nv) uint64 when that exceeds 16,384, else null.  Launches one
-// block on `stream` and returns cudaGetLastError().
+// 2 x ceil(nv / 256) x 256 uint64 when nv exceeds 8192, else null.
+// Launches one block on `stream` and returns cudaGetLastError().
 extern "C" int mpsnerf_vertex_buckets(const void* v, int64_t nv, void* scratch,
                                       void* table, void* boxes,
                                       void* stream) {
@@ -501,23 +722,30 @@ extern "C" int mpsnerf_vertex_buckets(const void* v, int64_t nv, void* scratch,
   if ((reinterpret_cast<uintptr_t>(table) & 15) ||
       (reinterpret_cast<uintptr_t>(boxes) & 15))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  int pow2 = 1;
-  while (pow2 < nv) pow2 <<= 1;
-  const bool shared = pow2 <= kMaxSharedKeys;
+  const bool shared = nv <= kMaxSharedKeys;
   if (!shared && !scratch) return static_cast<int>(cudaErrorInvalidValue);
   DeviceState* st = device_state();
   if (!st) return static_cast<int>(cudaErrorInvalidDevice);
   if (shared && !st->big_build_smem) {
     const cudaError_t err = cudaFuncSetAttribute(
         vertex_buckets_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSharedKeys * 8);
+        2 * kMaxSharedKeys * 8);
     if (err != cudaSuccess) return static_cast<int>(err);
     st->big_build_smem = true;
   }
-  vertex_buckets_kernel<<<1, kBuildThreads, shared ? pow2 * 8 : 0,
+  const int64_t keys = (nv + kRun - 1) / kRun * kRun;  // the runs, padded
+  vertex_buckets_kernel<<<1, kBuildThreads, shared ? 2 * keys * 8 : 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(v), static_cast<int>(nv), pow2,
+      static_cast<const float*>(v), static_cast<int>(nv),
       shared ? nullptr : static_cast<unsigned long long*>(scratch),
       static_cast<float4*>(table), static_cast<float4*>(boxes));
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef MPSNERF_BUILD_STAMPS
+// the 5 stamps of the last build: int64 SM clocks
+extern "C" int mpsnerf_build_stamps(void* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, build_stamps, sizeof(build_stamps)));
+}
+#endif

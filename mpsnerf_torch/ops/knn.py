@@ -45,7 +45,8 @@ BUCKET = 32  # vertices per bucket
 GROUP = 32   # queries per warp
 _MORTON_BITS = 10
 _SPREAD = {}  # device -> (1024,) int64: a 10-bit cell index, bits spread 3x
-_BUILD_SHARED_KEYS = 16384  # above: the build kernel sorts in a scratch
+_BUILD_RUN = 256  # keys a warp of the build kernel sorts in registers
+_BUILD_SHARED_KEYS = 8192  # above: the build kernel merges in a scratch
 
 
 def _d2(diff: torch.Tensor) -> torch.Tensor:
@@ -112,6 +113,17 @@ def _check_table(name: str, verts: torch.Tensor):
                          "not (V, 3) with V > 0")
 
 
+def morton_codes(v: torch.Tensor) -> torch.Tensor:
+    """(V,) int64: the 30-bit Morton code of each vertex of ``v`` (V, 3)
+    f32 on a 1024^3 grid over the table's box (the build's sort key)."""
+    lo = v.amin(0)
+    ext = (v.amax(0) - lo).clamp_min(1e-30)
+    scale = torch.reciprocal(ext) * float((1 << _MORTON_BITS) - 1)
+    cell = ((v - lo) * scale).long().clamp_(0, (1 << _MORTON_BITS) - 1)
+    lut = _spread(v.device)
+    return lut[cell[:, 0]] | (lut[cell[:, 1]] << 1) | (lut[cell[:, 2]] << 2)
+
+
 def build_vertex_buckets_plain(verts: torch.Tensor) -> VertexBuckets:
     """Cut ``verts`` (V, 3) into buckets of 32 spatially close vertices:
     sort by the Morton code of a 1024^3 grid over the table's box (ties
@@ -121,12 +133,7 @@ def build_vertex_buckets_plain(verts: torch.Tensor) -> VertexBuckets:
     _check_table("build_vertex_buckets_plain", verts)
     nv = verts.shape[0]
     v = verts.detach().float()
-    lo = v.amin(0)
-    ext = (v.amax(0) - lo).clamp_min(1e-30)
-    scale = torch.reciprocal(ext) * float((1 << _MORTON_BITS) - 1)
-    cell = ((v - lo) * scale).long().clamp_(0, (1 << _MORTON_BITS) - 1)
-    lut = _spread(v.device)
-    code = lut[cell[:, 0]] | (lut[cell[:, 1]] << 1) | (lut[cell[:, 2]] << 2)
+    code = morton_codes(v)
     ids = torch.arange(nv, device=v.device)
     order = torch.argsort(code * nv + ids)
     nb = -(-nv // BUCKET)
@@ -141,27 +148,40 @@ def build_vertex_buckets_plain(verts: torch.Tensor) -> VertexBuckets:
     return VertexBuckets(table, boxes, nv)
 
 
+def _build_buffers(verts: torch.Tensor):
+    """The build kernel's outputs (table, boxes) and its scratch: the
+    merge's two buffers of the padded runs where shared memory cannot hold
+    them (above :data:`_BUILD_SHARED_KEYS` vertices), else None."""
+    nv = verts.shape[0]
+    nb = -(-nv // BUCKET)
+    dev = verts.device
+    table = torch.empty(nb * BUCKET, 4, device=dev)
+    boxes = torch.empty(nb, 8, device=dev)
+    scratch = (torch.empty(2 * -(-nv // _BUILD_RUN) * _BUILD_RUN,
+                           dtype=torch.int64, device=dev)
+               if nv > _BUILD_SHARED_KEYS else None)
+    return table, boxes, scratch
+
+
 def build_vertex_buckets_cuda(verts: torch.Tensor) -> VertexBuckets:
-    """The bucket build as one CUDA kernel (one block; bit-equal to
-    :func:`build_vertex_buckets_plain`)."""
+    """The bucket build as one CUDA kernel (one block: runs of 256 keys
+    sorted in each warp's registers, then merged; bit-equal to
+    :func:`build_vertex_buckets_plain`, but for the sign of a zero box
+    bound: a bucket holding -0 and +0 on one axis gets -0 low and +0 high
+    here, either zero from the plain ``amin``/``amax``; the two compare
+    equal)."""
     _check_table("build_vertex_buckets_cuda", verts)
     if not verts.is_cuda or verts.dtype != torch.float32 \
             or not verts.is_contiguous():
         raise ValueError("build_vertex_buckets_cuda: verts must be "
                          "contiguous float32 on a CUDA device, not "
                          f"{verts.dtype} on {verts.device}")
-    nv = verts.shape[0]
-    nb = -(-nv // BUCKET)
-    pow2 = 1 << (nv - 1).bit_length()
-    dev = verts.device
-    table = torch.empty(nb * BUCKET, 4, device=dev)
-    boxes = torch.empty(nb, 8, device=dev)
-    scratch = (torch.empty(pow2, dtype=torch.int64, device=dev)
-               if pow2 > _BUILD_SHARED_KEYS else None)
-    _launch("mpsnerf_vertex_buckets", "vertex_buckets", dev,
-            verts.data_ptr(), nv, 0 if scratch is None else scratch.data_ptr(),
+    table, boxes, scratch = _build_buffers(verts)
+    _launch("mpsnerf_vertex_buckets", "vertex_buckets", verts.device,
+            verts.data_ptr(), verts.shape[0],
+            0 if scratch is None else scratch.data_ptr(),
             table.data_ptr(), boxes.data_ptr())
-    return VertexBuckets(table, boxes, nv)
+    return VertexBuckets(table, boxes, verts.shape[0])
 
 
 def build_vertex_buckets(verts: torch.Tensor) -> VertexBuckets:

@@ -315,6 +315,67 @@ class TestBucketedNearestVertex:
             whole = (v.amax(0) - v.amin(0)).norm()
             assert float(diag) < 0.25 * float(whole)
 
+    @pytest.mark.parametrize("case", ["1", "33", "rig", "8192", "8193",
+                                      "16384", "16385", "20000", "equal",
+                                      "flat", "one_cell", "signed_zero"])
+    def test_bucket_build_order_is_the_spec(self, case, rig):
+        """The plain build (which the CUDA build equals bit for bit on the
+        card) against the (Morton code, id) order made here in numpy: the
+        float32 box and scale rounded as ``build_vertex_buckets_plain``
+        rounds them, the code of the 1024^3 cell, ties by id
+        (``np.lexsort``), padded with the last vertex; each bucket's ids
+        ascending and its box exact.  Sizes at the kernel's edges (one
+        warp run, the last warp run, shared memory against scratch) and
+        degenerate tables: all vertices equal, one flat axis, most
+        vertices in one Morton cell, one axis of zeros of both signs (the
+        boxes' zero bounds compare equal whatever their sign)."""
+        rng = np.random.default_rng(12)
+        posed = rig[1].v_template.float().numpy()
+        if case == "rig":
+            v = posed
+        elif case == "equal":
+            v = np.repeat(posed[:1], 6890, 0)
+        elif case == "flat":
+            v = posed.copy()
+            v[:, 1] = 0.5
+        elif case == "signed_zero":
+            v = posed.copy()
+            v[:, 1] = 0.0
+            v[::2, 1] = -0.0
+        elif case == "one_cell":
+            v = np.float32(0.1234) + rng.random((6890, 3), np.float32) * 1e-6
+            v[0], v[-1] = -1.0, 1.0
+        else:
+            v = rng.normal(size=(int(case), 3)).astype(np.float32)
+        v = np.ascontiguousarray(v, np.float32)
+        nv = len(v)
+        lo = v.min(0)
+        scale = (np.float32(1) / np.maximum(v.max(0) - lo, np.float32(1e-30))
+                 * np.float32(1023))
+        cell = np.clip(((v - lo) * scale).astype(np.int64), 0, 1023)
+        code = np.zeros(nv, np.int64)
+        for b in range(10):
+            for a in range(3):
+                code |= ((cell[:, a] >> b) & 1) << (3 * b + a)
+        order = np.lexsort((np.arange(nv), code))
+        if case == "one_cell":  # the tie really goes by id
+            assert np.bincount(np.unique(code, return_inverse=True)[1]).max() \
+                > 6000
+        nb = -(-nv // t_knn.BUCKET)
+        order = np.concatenate([order, np.repeat(order[-1:],
+                                                 nb * t_knn.BUCKET - nv)])
+        ids = np.sort(order.reshape(nb, t_knn.BUCKET), axis=1)
+        rows = v[ids]
+        zero = np.zeros((nb, 1), np.float32)
+        boxes = np.concatenate([rows.min(1), zero, rows.max(1), zero], 1)
+
+        b = t_knn.build_vertex_buckets_plain(_t(v))
+        got = b.table[:, 3].contiguous().view(torch.int32).numpy()
+        np.testing.assert_array_equal(got, ids.reshape(-1))
+        np.testing.assert_array_equal(b.table[:, :3].numpy(),
+                                      rows.reshape(-1, 3))
+        np.testing.assert_array_equal(b.boxes.numpy(), boxes)
+
     @pytest.mark.parametrize("case", ["cpu", "shape"])
     def test_cuda_bucket_build_rejects_what_it_does_not_take(self, case):
         """The build kernel's wrapper raises on a CPU table or a non-(V, 3)
