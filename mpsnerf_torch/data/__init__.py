@@ -18,6 +18,7 @@ from mpsnerf_torch.models.sparse_conv import (
     plan_to,
 )
 from mpsnerf_torch.ops.body_grid import BodyGrid, build_body_grid, grid_to
+from mpsnerf_torch.utils import spans
 
 # per-view ray and image stacks: read on the host by the view renderer
 # (sliced per view); the trainer takes the ray stacks to the device
@@ -53,22 +54,25 @@ def to_device_input(item: Dict, device="cuda", rays: bool = False) -> Dict:
     images are often transposed views): an item then computes the same
     on every rank of a mesh, where it travels as a pickle, and in the
     process that loaded it (the convolutions pick other kernels, with
-    other rounding, for other strides)."""
+    other rounding, for other strides).  The span ``item.copy`` (a root
+    where no span is open)."""
     out = {}
-    for k, v in item.items():
-        if k.startswith("_") or (k in HOST_ONLY_KEYS
-                                 and not (rays and k in RAY_KEYS)):
-            continue
-        if isinstance(v, BodyGrid):
-            out[k] = grid_to(v, device)
-        elif isinstance(v, SparseConvPlan):
-            out[k] = plan_to(v, device)
-        elif isinstance(v, dict):
-            out[k] = {kk: torch.as_tensor(np.array(vv, order="C"),
-                                          device=device)
-                      for kk, vv in v.items()}
-        else:
-            out[k] = torch.as_tensor(np.array(v, order="C"), device=device)
+    with spans.span("item.copy"):
+        for k, v in item.items():
+            if k.startswith("_") or (k in HOST_ONLY_KEYS
+                                     and not (rays and k in RAY_KEYS)):
+                continue
+            if isinstance(v, BodyGrid):
+                out[k] = grid_to(v, device)
+            elif isinstance(v, SparseConvPlan):
+                out[k] = plan_to(v, device)
+            elif isinstance(v, dict):
+                out[k] = {kk: torch.as_tensor(np.array(vv, order="C"),
+                                              device=device)
+                          for kk, vv in v.items()}
+            else:
+                out[k] = torch.as_tensor(np.array(v, order="C"),
+                                         device=device)
     return out
 
 

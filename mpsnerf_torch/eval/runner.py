@@ -56,6 +56,7 @@ from mpsnerf_torch.renderer.render import (
     render_rays,
     render_rays_compact,
 )
+from mpsnerf_torch.utils import spans
 
 _RAY_KEYS = ("ray_o_all", "ray_d_all", "near_all", "far_all")
 
@@ -288,35 +289,38 @@ class ViewRenderer:
         return smpl, sp, tp, self._latent_for(sp_item, sp)
 
     def _prep_view(self, sp_item: Dict, tp_item: Dict, k: int, ray_mask):
-        smpl, sp, tp, latent = self.device_items(sp_item, tp_item)
-        rays, sel, n_total = view_rays(tp_item, k, self.device, ray_mask)
+        with spans.span("view.prepare"):
+            smpl, sp, tp, latent = self.device_items(sp_item, tp_item)
+            rays, sel, n_total = view_rays(tp_item, k, self.device, ray_mask)
         return smpl, sp, tp, latent, rays, sel, n_total
 
     def _prepasses(self, smpl, tp, rays, extra: int = 0) -> Tuple:
         """The plan and (``fine``) fine pre-passes over the device rays, at
         capacities ``extra`` tiles above the counts; their two
-        ``int(n_valid)`` reads are the global path's only
-        synchronisations.  Returns ``(plan, fine_plan, fine_ids, count,
+        ``n_valid`` reads are the global path's only reads of the device
+        before the fetch.  Returns ``(plan, fine_plan, fine_ids, count,
         capacity, n_body, fine_capacity)``."""
-        n, ns, add = rays[0].shape[0], self.n_samples, extra * self.tile
-        plan = plan_rays_compact(smpl, tp, *rays, ns,
-                                 cap_max=self._round_up(n * ns) + add)
-        count = int(plan.n_valid)
-        cap = self._round_up(count) + add
-        if not self.fine:
-            return plan, None, None, count, cap, 0, 0
-        fplan, fids = fine_rays_compact(smpl, tp, *rays, ns, plan, cap)
-        n_body = int(fplan.n_valid)
+        with spans.span("view.prepass"):
+            n, ns, add = rays[0].shape[0], self.n_samples, extra * self.tile
+            plan = plan_rays_compact(smpl, tp, *rays, ns,
+                                     cap_max=self._round_up(n * ns) + add)
+            count = spans.host_read(plan.n_valid, "prepass.candidates")
+            cap = self._round_up(count) + add
+            if not self.fine:
+                return plan, None, None, count, cap, 0, 0
+            fplan, fids = fine_rays_compact(smpl, tp, *rays, ns, plan, cap)
+            n_body = spans.host_read(fplan.n_valid, "prepass.body")
         return (plan, fplan, fids, count, cap, n_body,
                 self._round_up(n_body) + add)
 
     def _render_global(self, smpl, sp, tp, latent, rays, pre):
         plan, fplan, fids, _, cap, _, fcap = pre
-        rgb, _, acc, nd = render_rays_compact(
-            self.model, smpl, sp, tp, latent, *rays, self.n_samples,
-            capacity=cap, tile=self.tile, fine_capacity=fcap,
-            white_bkgd=self.white_bkgd, plan=plan, fine_plan=fplan,
-            fine_ids=fids)
+        with spans.span("view.tail"):
+            rgb, _, acc, nd = render_rays_compact(
+                self.model, smpl, sp, tp, latent, *rays, self.n_samples,
+                capacity=cap, tile=self.tile, fine_capacity=fcap,
+                white_bkgd=self.white_bkgd, plan=plan, fine_plan=fplan,
+                fine_ids=fids)
         return rgb, acc, nd
 
     def prewarm(self, sp_item: Dict, tp_item: Dict, k: int = 0,
@@ -350,8 +354,8 @@ class ViewRenderer:
         :meth:`finish_view`.  On the global path the render is queued on
         the device and its image is not fetched, so a caller can start
         view k+1 before finishing view k and overlap its host work (the
-        fetch, metrics, PNGs) with the device's render; the only
-        synchronisations are the pre-passes' two counts.  The chunked path
+        fetch, metrics, PNGs) with the device's render; the only reads
+        of the device are the pre-passes' two counts.  The chunked path
         completes inside this call."""
         explicit_mask = ray_mask is not None
         ray_mask = self._view_ray_mask(tp_item, k, ray_mask)
@@ -392,16 +396,18 @@ class ViewRenderer:
         """The (H*W, 3) image of a :meth:`render_view_async` handle."""
         if pending.done is not None:
             return pending.done
-        rgb, acc, nd = pending.out
-        n_dropped = int(nd)
-        # the render consumes the pre-passes' own plans at capacities that
-        # cover their counts, so nothing can drop
-        assert n_dropped == 0, (n_dropped,) + pending.stats
-        rgb, acc = rgb.cpu().numpy(), acc.cpu().numpy()
-        self.last_view = ViewStats(
-            _scatter(acc, pending.sel, pending.n_total, 0.0), n_dropped,
-            *pending.stats, 0)
-        return _scatter(rgb, pending.sel, pending.n_total, pending.fill)
+        with spans.span("view.fetch"):
+            rgb, acc, nd = pending.out
+            n_dropped = spans.host_read(nd, "fetch.dropped")
+            # the render consumes the pre-passes' own plans at capacities
+            # that cover their counts, so nothing can drop
+            assert n_dropped == 0, (n_dropped,) + pending.stats
+            rgb = spans.host_read(rgb, "fetch.rgb").numpy()
+            acc = spans.host_read(acc, "fetch.acc").numpy()
+            self.last_view = ViewStats(
+                _scatter(acc, pending.sel, pending.n_total, 0.0), n_dropped,
+                *pending.stats, 0)
+            return _scatter(rgb, pending.sel, pending.n_total, pending.fill)
 
     def render_view(self, sp_item: Dict, tp_item: Dict, k: int,
                     ray_mask: Optional[np.ndarray] = None) -> np.ndarray:
@@ -418,7 +424,8 @@ class ViewRenderer:
             model, smpl, sp, tp, latent, *block, self.n_samples,
             perturb=0.0, train=False, white_bkgd=self.white_bkgd,
             n_importance=self.n_importance)
-        return out.rgb_map, out.acc_map, int(out.raw.n_dropped)
+        return out.rgb_map, out.acc_map, spans.host_read(
+            out.raw.n_dropped, "chunk.dropped")
 
     def _render_view_chunked(self, smpl, sp, tp, latent, rays, sel, n_total,
                              fill) -> _PendingView:
@@ -450,8 +457,8 @@ class ViewRenderer:
             rgbs.append(rgb)
             accs.append(acc)
         self.n_overflow_chunks += overflows
-        rgb = torch.cat(rgbs).cpu().numpy()
-        acc = torch.cat(accs).cpu().numpy()
+        rgb = spans.host_read(torch.cat(rgbs), "fetch.rgb").numpy()
+        acc = spans.host_read(torch.cat(accs), "fetch.acc").numpy()
         if perm is not None:
             rgb[perm], acc[perm] = rgb.copy(), acc.copy()
         self.last_view = ViewStats(_scatter(acc, sel, n_total, 0.0), dropped,

@@ -18,8 +18,8 @@ pipeline):
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -29,6 +29,7 @@ from mpsnerf_torch.native import export_obj, extract_isosurface
 from mpsnerf_torch.ops.composite import shifted_softplus
 from mpsnerf_torch.ops.knn import knn_points, nearest_vertex
 from mpsnerf_torch.smpl.mesh import vertex_normals
+from mpsnerf_torch.utils import spans
 
 DIST_THRESHOLD_SQ = 0.05 ** 2   # the 5 cm carve
 INTERIOR_FILL = 100.0           # occupancy of carved points inside the body
@@ -84,20 +85,23 @@ class GridSpec:
         return self.start + grid_verts * scale
 
 
-def _clock(device: torch.device, stats: Optional[Dict]) -> float:
-    """The host clock, once the device has finished (when timing)."""
-    if stats is not None and device.type == "cuda":
+@contextlib.contextmanager
+def _stage(name: str, device: torch.device, stats: Optional[Dict]):
+    """The span ``mesh.<name>`` over one stage; with ``stats``, recorded
+    between synchronisations of the device and added to
+    ``stats["<name>_ms"]``."""
+    if stats is None:
+        with spans.span(f"mesh.{name}"):
+            yield
+        return
+    cuda = device.type == "cuda"
+    if cuda:
         torch.cuda.synchronize(device)
-    return time.perf_counter()
-
-
-def _lap(stats: Optional[Dict], key: str, device: torch.device,
-         t0: float) -> float:
-    """Adds the ms since ``t0`` to ``stats[key]``; returns the clock."""
-    now = _clock(device, stats)
-    if stats is not None:
-        stats[key] = stats.get(key, 0.0) + (now - t0) * 1e3
-    return now
+    with spans.recording(), spans.span(f"mesh.{name}") as s:
+        yield
+        if cuda:
+            torch.cuda.synchronize(device)
+    stats[f"{name}_ms"] = stats.get(f"{name}_ms", 0.0) + s.ms
 
 
 def carve_masks(pts: torch.Tensor, verts: torch.Tensor, faces: torch.Tensor,
@@ -105,19 +109,18 @@ def carve_masks(pts: torch.Tensor, verts: torch.Tensor, faces: torch.Tensor,
     """The carve's two masks at ``pts`` (N, 3): ``near`` (within 5 cm of
     ``verts``, by K1) and ``outside`` (in front of the mean normal of the 5
     nearest vertices).  ``stats`` gets ``mask_ms`` and ``carve_ms``."""
-    t0 = _clock(pts.device, stats)
-    d2, _ = nearest_vertex(pts, verts)
-    near = d2 < DIST_THRESHOLD_SQ
-    t0 = _lap(stats, "mask_ms", pts.device, t0)
-    normals = vertex_normals(verts, faces)
-    _, ids5 = knn_points(pts, verts, k=5)
-    mean_pos = verts[ids5].mean(dim=1)
-    mean_nrm = normals[ids5].mean(dim=1)
-    pts_dir = pts - mean_pos
-    pts_dir = pts_dir / (torch.linalg.norm(pts_dir, dim=-1, keepdim=True)
-                         + 1e-12)
-    outside = torch.sum(pts_dir * mean_nrm, dim=-1) > 0
-    _lap(stats, "carve_ms", pts.device, t0)
+    with _stage("mask", pts.device, stats):
+        d2, _ = nearest_vertex(pts, verts)
+        near = d2 < DIST_THRESHOLD_SQ
+    with _stage("carve", pts.device, stats):
+        normals = vertex_normals(verts, faces)
+        _, ids5 = knn_points(pts, verts, k=5)
+        mean_pos = verts[ids5].mean(dim=1)
+        mean_nrm = normals[ids5].mean(dim=1)
+        pts_dir = pts - mean_pos
+        pts_dir = pts_dir / (torch.linalg.norm(pts_dir, dim=-1, keepdim=True)
+                             + 1e-12)
+        outside = torch.sum(pts_dir * mean_nrm, dim=-1) > 0
     return near, outside
 
 
@@ -134,14 +137,14 @@ def occupancy_grid(
     """Steps 1-3: the carved occupancy at every grid point, (N,) f32 on
     ``device`` in :meth:`GridSpec.points` order.  ``density_fn``: (n, 3)
     points on ``device`` -> (n,) raw sigma.  ``stats`` gets ``density_ms``,
-    ``mask_ms`` and ``carve_ms`` (host clock after the device finished)."""
+    ``mask_ms`` and ``carve_ms`` (the stages' spans, between
+    synchronisations of the device)."""
     device = torch.device(device)
     pts = grid.points_on(device)
-    t0 = _clock(device, stats)
-    occ = torch.empty(pts.shape[0], dtype=torch.float32, device=device)
-    for i in range(0, pts.shape[0], chunk):
-        occ[i:i + chunk] = shifted_softplus(density_fn(pts[i:i + chunk]))
-    _lap(stats, "density_ms", device, t0)
+    with _stage("density", device, stats):
+        occ = torch.empty(pts.shape[0], dtype=torch.float32, device=device)
+        for i in range(0, pts.shape[0], chunk):
+            occ[i:i + chunk] = shifted_softplus(density_fn(pts[i:i + chunk]))
     if carve:
         verts = torch.as_tensor(t_vertices, dtype=torch.float32,
                                 device=device)
@@ -183,12 +186,11 @@ def extract_density_mesh(
     occ = occupancy_grid(density_fn, grid, t_vertices, faces, carve=carve,
                          chunk=chunk, device=device, stats=stats)
     occ = occ.cpu().numpy().reshape(grid.n)
-    t0 = time.perf_counter()
-    grid_verts, tris = extract_isosurface(occ, float(threshold))
-    verts = grid.to_world(grid_verts)
-    tris = tris[:, ::-1].copy()  # the reference's orientation flip
+    with _stage("mc", device, stats):
+        grid_verts, tris = extract_isosurface(occ, float(threshold))
+        verts = grid.to_world(grid_verts)
+        tris = tris[:, ::-1].copy()  # the reference's orientation flip
     if stats is not None:
-        stats["mc_ms"] = (time.perf_counter() - t0) * 1e3
         stats["n_points"] = occ.size
     if obj_path is not None:
         export_obj(obj_path, verts, tris)

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from mpsnerf_torch.data import HOST_ONLY_KEYS
+from mpsnerf_torch.utils import spans
 
 __all__ = ["export_serving_bundle", "load_serving_bundle", "ServedRenderer"]
 
@@ -361,10 +362,14 @@ class ServedRenderer:
     @contextlib.contextmanager
     def _request(self, sp_item: Dict, tp_item: Dict):
         """One device call on a (source, target) pair: the single-flight
-        lock, inference mode, the validation and the item cache."""
-        with self._lock, torch.inference_mode():
-            keys = [self._prep(it, side)
-                    for it, side in ((sp_item, "sp"), (tp_item, "tp"))]
+        lock, inference mode, the validation and the item cache; the root
+        span ``serve.request``, ``serve.prep`` over the keys, validation
+        and cache lookup."""
+        with spans.span("serve.request"), self._lock, \
+                torch.inference_mode():
+            with spans.span("serve.prep"):
+                keys = [self._prep(it, side)
+                        for it, side in ((sp_item, "sp"), (tp_item, "tp"))]
             yield
             for it, key, side in zip((sp_item, tp_item), keys, ("sp", "tp")):
                 self._keep(it, key, side)

@@ -46,6 +46,7 @@ from mpsnerf_torch.parallel.collectives import AxisName, pmean_
 from mpsnerf_torch.renderer.render import importance_z, query_rays, z_ladder
 from mpsnerf_torch.smpl.model import SMPLModel
 from mpsnerf_torch.train.losses import LossTerms, compute_losses, mse2psnr
+from mpsnerf_torch.utils import spans
 
 
 # the BatchNorm statistics (flax's ``batch_stats``) among a model's buffers
@@ -167,7 +168,7 @@ def summarize_item_logs(logs: List[Tuple[LossTerms, torch.Tensor]],
     dict (``n_dropped`` is the max over views) and run the overflow
     check."""
     def mean(xs):
-        return float(np.mean([float(x) for x in xs]))
+        return float(np.mean([spans.host_read(x, "item.logs") for x in xs]))
 
     out = {
         "loss": mean([t.total for t, _ in logs]),
@@ -176,7 +177,8 @@ def summarize_item_logs(logs: List[Tuple[LossTerms, torch.Tensor]],
         "psnr": mean([p for _, p in logs]),
         "normal_smooth_loss": mean([t.normal_smooth for t, _ in logs]),
         "smpl_normal_loss": mean([t.smpl_normal for t, _ in logs]),
-        "n_dropped": max(float(t.n_dropped) for t, _ in logs),
+        "n_dropped": max(float(spans.host_read(t.n_dropped, "item.logs"))
+                         for t, _ in logs),
     }
     check_train_overflow(out["n_dropped"], step)
     return out
@@ -265,8 +267,11 @@ class Trainer:
             smpl, sp_input, tp_input, *rays, u=u, delta=delta,
             generator=self.generator)
         # for the parameters only: no gradient of the canonical points (a
-        # leaf of the smooth step's normal) is computed, e.g. in K2
-        total.backward(inputs=self.params)
+        # leaf of the smooth step's normal) is computed, e.g. in K2; the
+        # backward of the transmittance's cumprod reads the device (its
+        # zero test)
+        with spans.sync("step.backward"):
+            total.backward(inputs=self.params)
         terms = LossTerms(*(t.detach() for t in terms))
         if self.axis_name is not None:
             terms = pmean_step(self.axis_name, self.params, terms, self.stats)
@@ -281,11 +286,12 @@ class Trainer:
         """One loader item: a view-step per output view (``tp_input``
         carries the item's ray stacks; a pair item's source and target
         differ, any other passes the same item twice).  Returns averaged
-        scalars."""
-        n_views = int(tp_input["rgb_all"].shape[0])
-        self.last_logs = [self.view_step(smpl, sp_input, tp_input, k)
-                          for k in range(n_views)]
-        return summarize_item_logs(self.last_logs, self.step)
+        scalars.  The root span ``train.item``."""
+        with spans.span("train.item"):
+            n_views = int(tp_input["rgb_all"].shape[0])
+            self.last_logs = [self.view_step(smpl, sp_input, tp_input, k)
+                              for k in range(n_views)]
+            return summarize_item_logs(self.last_logs, self.step)
 
     def state(self) -> Dict:
         """The checkpoint payload: step, model and optimizer state."""
