@@ -30,7 +30,9 @@ non-zero):
      calls (ids and d2 equal; the pairs the kernel evaluated beside the
      plain emulation's), and K2's backward and double backward on a plain
      and a smooth step's real latent inputs (and the flags those steps
-     asked for);
+     asked for); the LayerNorm kernel against its plain version at a
+     served tail tile's rows (49,152 and 32,768 x 155) and at a few rows
+     of widths 155, 128 and 37 (each output to 1e-6 of its max |value|);
   3. CUDA against CPU at 64^2 (full 6890-vertex rig, seeded weights, TF32
      off): the serving render, the chunked path and the chunked path at
      ``n_importance`` 4 (pixels 1e-4, counts exact), one plain and one
@@ -45,8 +47,10 @@ non-zero):
      scatter, ``finish_view``, apart); each request must drop
      nothing, give finite pixels, accumulate opacity > 0.5 on > 1 % of the
      pixels and launch K1 at least twice and K2 forward; the encoded
-     latent must be channels-last and K2 must copy no layout; K1's and
-     all kernels' launches per view;
+     latent must be channels-last and K2 must copy no layout; every tail
+     tile must replay its CUDA graphs, and the LayerNorm launches must be
+     the replays' (the 4 a tile captured, times the tiles); K1's, the
+     LayerNorm's and all kernels' launches per view;
   5. training at full width: ``Trainer.train_item`` on two items of the
      synthetic train split (3 input views at 512^2, 4 output views, 1000
      rays per view-step, 128 samples, perturb 1), 8 view-steps of which 2
@@ -69,7 +73,10 @@ non-zero):
      the SM cycles of its phases; for K2 also the
      RGB, the other image layout, and the backward and double backward on
      each captured set beside the yardstick of autograd through
-     ``F.grid_sample`` (not the same function at the border);
+     ``F.grid_sample`` (not the same function at the border); for the
+     LayerNorm its call and device times at a served tail tile's two row
+     counts against its bytes bound, its plain version and
+     ``F.layer_norm`` (none of its launches on the train step);
   8. the eval entry point at full width (the phase-4 scene and seeded
      model, ``args`` from ``configs/canonical_transformer.txt`` through
      ``mpsnerf_torch.config``): ``run_synthetic_eval`` into a temporary
@@ -288,6 +295,11 @@ PAIR_OPCODES = ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL", "SEL",
                 "LOP3", "VIMNMX", "VIMNMX3", "IMNMX")
 STREAMED_VERTS = 20000  # above the shared-memory table's 12,032 vertices
 
+LN_SOURCE = "mpsnerf_torch/csrc/layer_norm.cu"
+LN_REPLACES = ("none: mpsnerf_tpu/models/transformer.py leaves the "
+               "LayerNorm to XLA")
+LN_ROWS = {"tile_3_views": 3 * 16384, "tile_2_views": 2 * 16384}
+LN_WIDTH = 155  # the transformer's rows in both shipped configs
 KNN_SOURCE = "mpsnerf_torch/csrc/nearest_vertex.cu"
 KNN_REPLACES = "mpsnerf_tpu/ops/knn.py:76 (_nn_kernel, pallas_call at :139)"
 PACKED_SOURCE = "mpsnerf_torch/csrc/nearest_vertex_packed.cu"
@@ -380,9 +392,9 @@ def host_us(fn, reps):
 
 
 def _counters():
-    from mpsnerf_torch.ops import grid_sample, knn
+    from mpsnerf_torch.ops import grid_sample, knn, layer_norm
 
-    return (knn.LAUNCHES, grid_sample.LAUNCHES)
+    return (knn.LAUNCHES, grid_sample.LAUNCHES, layer_norm.LAUNCHES)
 
 
 def reset_counts():
@@ -621,6 +633,93 @@ def rel_errors(kernel_outs, plain_outs, labels, exact=None):
         worst = max(worst, float((a - b).abs().max()))
         parts.append(text)
     return ok, worst, ", ".join(parts)
+
+
+def layer_norm_inputs(rows, d, seed, dev):
+    """Rows with an offset and a spread each, as the transformer's residual
+    stream has, and an affine weight and bias."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (3.0 * torch.randn(rows, d, generator=g, device=dev)
+         + torch.randn(rows, 1, generator=g, device=dev))
+    w = 1.0 + 0.5 * torch.randn(d, generator=g, device=dev)
+    b = 0.5 * torch.randn(d, generator=g, device=dev)
+    return x, w, b
+
+
+def compare_layer_norm(dev):
+    """Phase 2: the LayerNorm kernel against its plain version; returns
+    the worst absolute error."""
+    import torch
+
+    from mpsnerf_torch.ops.layer_norm import layer_norm_cuda, layer_norm_plain
+
+    cases = [(rows, LN_WIDTH) for rows in LN_ROWS.values()]
+    cases += [(1, LN_WIDTH), (3, 128), (1000, 37)]
+    ok, worst, parts = True, 0.0, []
+    with uncounted(), torch.no_grad():
+        for rows, d in cases:
+            x, w, b = layer_norm_inputs(rows, d, rows + d, dev)
+            out = layer_norm_cuda(x, w, b, 1e-5)
+            ref = layer_norm_plain(x, w, b, 1e-5)
+            rel = _rel(out, ref)
+            ok &= rel <= 1e-6
+            worst = max(worst, float((out - ref).abs().max()))
+            parts.append(f"{rows} x {d} {rel:.2g}")
+    log(f"[2] layer_norm against plain, max|diff| / max|plain|: "
+        f"{', '.join(parts)} (1e-6): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(1)
+    return worst
+
+
+def layer_norm_record(dev, err, train_launches, serving_launches,
+                      per_view):
+    """Phase 7: the LayerNorm kernel's record, timed at a served tail
+    tile's two row counts (its 3 views' rows, and the last layer's 2)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mpsnerf_torch.ops.layer_norm import layer_norm_cuda, layer_norm_plain
+
+    shapes = {}
+    with uncounted(), torch.no_grad():
+        for label, rows in LN_ROWS.items():
+            x, w, b = layer_norm_inputs(rows, LN_WIDTH, rows, dev)
+            bound, by = _bound((2 * rows * LN_WIDTH + 2 * LN_WIDTH) * 4,
+                               8 * rows * LN_WIDTH)
+            kernel = lambda: layer_norm_cuda(x, w, b, 1e-5)  # noqa: E731
+            dev_ms = device_ms(kernel, 200)
+            shapes[label] = {
+                "shape": [rows, LN_WIDTH], "ms": cuda_ms(kernel, 200),
+                "device_ms": dev_ms,
+                "plain_ms": cuda_ms(
+                    lambda: layer_norm_plain(x, w, b, 1e-5), 50),
+                "library_ms": cuda_ms(lambda: F.layer_norm(
+                    x, (LN_WIDTH,), w, b, 1e-5), 200),
+                "bound_ms": bound, "bound_by": by,
+                "roofline_pct": None if dev_ms is None
+                else 100 * bound / dev_ms}
+            r = shapes[label]
+            log(f"[7] layer_norm {rows} x {LN_WIDTH}: {r['ms']:.4f} ms a "
+                f"call, device {fmt(r['device_ms'])} ms, bound "
+                f"{bound:.4f} ms ({by}; {fmt(r['roofline_pct'], '.1f')} % "
+                f"of the device time), plain {r['plain_ms']:.4f} ms, "
+                f"F.layer_norm {r['library_ms']:.4f} ms")
+    ok = train_launches["layer_norm"] == 0
+    log(f"[7] layer_norm launches: train path {train_launches['layer_norm']}"
+        f" (0: autograd records it), served views {per_view}: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(1)
+    main = shapes["tile_3_views"]
+    return {
+        "name": "layer_norm", "route": "cuda", "source": LN_SOURCE,
+        "replaces": LN_REPLACES, "launches": train_launches["layer_norm"],
+        "launches_serving": serving_launches["layer_norm"],
+        "launches_per_view": per_view, "max_abs_err": err,
+        **main, "shapes": shapes}
 
 
 def scatter_f64(g, image, coords):
@@ -3752,6 +3851,7 @@ def serving_on_the_card(dev, tmp, item, smpl, camera, spy, spiral_hw=256,
     from mpsnerf_torch.eval.video import read_avi_index
     from mpsnerf_torch.geometry import GridSpec, extract_density_mesh
     from mpsnerf_torch.models.mps_nerf import MPSNeRF
+    from mpsnerf_torch.renderer import tile_graphs
     from mpsnerf_torch.serve import export_serving_bundle
     from mpsnerf_torch.serve.server import BundleServer, items_to_npz_bytes
 
@@ -3795,8 +3895,11 @@ def serving_on_the_card(dev, tmp, item, smpl, camera, spy, spiral_hw=256,
             f"/camera?h={clean['img_all'].shape[-2]}"
             f"&w={clean['img_all'].shape[-1]}", cam)))
         # frame 0 of the spiral: its fine pre-pass and its first tail tile
+        # (an eager query, or the replay of its CUDA graphs)
         with nth_call(spy, "spiral frame 0", runner, "fine_rays_compact"), \
-                nth_call(spy, "spiral frame 0", MPSNeRF, "query"):
+                nth_call(spy, "spiral frame 0", MPSNeRF, "query"), \
+                nth_call(spy, "spiral frame 0", tile_graphs._Captured,
+                         "run"):
             spiral = np.load(io.BytesIO(request(
                 f"/spiral?frames={spiral_frames}&h={spiral_hw}"
                 f"&w={spiral_hw}", body)))
@@ -4844,7 +4947,8 @@ def main(argv=None):
         log("[1] PIL does not import: JPEG images cannot be read, PNG can")
     clock_mhz = card_clock_mhz()
     t0 = time.perf_counter()
-    sources = ("nearest_vertex", "nearest_vertex_packed", "grid_sample_patch")
+    sources = ("nearest_vertex", "nearest_vertex_packed", "grid_sample_patch",
+               "layer_norm")
     cuda_build.build_kernels(sources)
     for name in sources:
         ptxas = " | ".join(
@@ -4910,6 +5014,7 @@ def main(argv=None):
         knn_err = max(knn_err, compare_knn(label, kq, kv, kb)[0])
     k2_errs = {which: compare_k2(which, shape, dev)
                for which, shape in TRAIN_SHAPES.items()}
+    ln_err = compare_layer_norm(dev)
     if stop_after <= 2:
         log(f"[2] stopping after phase 2 ({time.perf_counter() - t_start:.0f}"
             " s)")
@@ -4966,9 +5071,11 @@ def main(argv=None):
     torch.cuda.synchronize()
     log(f"[4] warm-up view in {time.perf_counter() - t0:.2f} s")
     reset_counts()
-    launches, view_ms = [], []
+    launches, ln_launches, view_ms = [], [], []
+    graphs = renderer._tile_graphs
     for k in (1, 3, 5):
         before = read_counts()
+        tiles, graph_tiles = graphs.tiles, graphs.graph_tiles
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         # the view's time: from the request to its image on the device;
@@ -4988,19 +5095,27 @@ def main(argv=None):
         n_launch = after["nearest_vertex"] - before["nearest_vertex"]
         n_fwd = (after["grid_sample_patch_fwd"]
                  - before["grid_sample_patch_fwd"])
+        n_ln = after["layer_norm"] - before["layer_norm"]
+        n_tiles = graphs.tiles - tiles
+        replayed = graphs.graph_tiles - graph_tiles
         opaque = float((out.acc > 0.5).mean())
         finite = bool(np.isfinite(rgb).all())
         ok = (out.n_dropped == 0 and finite and opaque > 0.01
               and n_launch >= 2 and n_fwd >= 2
+              and replayed == n_tiles > 0
+              and graphs._captured.replay_norms == 4
+              and n_ln == 4 * n_tiles
               and rgb.shape == (512 * 512, 3))
         launches.append(n_launch)
+        ln_launches.append(n_ln)
         view_ms.append(start.elapsed_time(end))
         log(f"[4] view {k}: {view_ms[-1]:.1f} ms (CUDA events), "
             f"{wall * 1e3:.1f} ms wall, then {finish_ms:.1f} ms to fetch "
             f"and scatter the image (host); hit rays {out.hit_rays}, candidates "
             f"{out.n_candidates}, capacity {out.capacity}, body points "
-            f"{out.n_body}, fine capacity {out.fine_capacity}, knn launches "
-            f"{n_launch}, K2 forward launches {n_fwd}, n_dropped "
+            f"{out.n_body}, fine capacity {out.fine_capacity}, tail tiles "
+            f"{n_tiles} ({replayed} replayed), knn launches {n_launch}, K2 "
+            f"forward launches {n_fwd}, layer_norm launches {n_ln}, n_dropped "
             f"{out.n_dropped}, acc>0.5 on {100 * opaque:.1f} % of pixels, "
             f"finite {finite}: {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -5016,8 +5131,8 @@ def main(argv=None):
         return 1
     view_launches = breakdown(renderer, smpl, item, 1, view_ms[0])
     log(f"[4] launches per served view (view 1): K1 {launches[0]}, bucket "
-        f"builds {serving_launches['vertex_buckets'] // 3}, all kernels "
-        f"{view_launches}")
+        f"builds {serving_launches['vertex_buckets'] // 3}, layer_norm "
+        f"{ln_launches[0]}, all kernels {view_launches}")
     tail_sets, n_tiles = capture_view_knn(renderer, item, 1)
     log(f"[4] captured K1's inputs of view 1: the fine pre-pass and tail "
         f"tile {n_tiles // 2} of {n_tiles}")
@@ -5111,6 +5226,8 @@ def main(argv=None):
             "name": name, "route": "cuda", "source": GS_SOURCE,
             "replaces": GS_REPLACES[name], "launches": train_launches[name],
             "launches_serving": serving_launches[name], **rec})
+    records.append(layer_norm_record(dev, ln_err, train_launches,
+                                     serving_launches, ln_launches))
     if stop_after <= 7:
         return 0
 

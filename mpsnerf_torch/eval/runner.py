@@ -56,6 +56,7 @@ from mpsnerf_torch.renderer.render import (
     render_rays,
     render_rays_compact,
 )
+from mpsnerf_torch.renderer.tile_graphs import TileGraphs
 from mpsnerf_torch.smpl.lbs import PoseTransforms
 from mpsnerf_torch.utils import spans
 
@@ -239,6 +240,9 @@ class ViewRenderer:
         self._model_nc = (model if model.compact_fraction is None
                           else model.with_compact_fraction(None))
         self.n_overflow_chunks = 0  # across renders
+        # the global path's query tail as CUDA graphs, one source's at a
+        # time (renderer/tile_graphs.py)
+        self._tile_graphs = TileGraphs()
         self.last_view: Optional[ViewStats] = None
 
     def _round_up(self, count: int) -> int:
@@ -321,12 +325,17 @@ class ViewRenderer:
 
     def _render_global(self, smpl, sp, tp, latent, rays, pre):
         plan, fplan, fids, _, cap, _, fcap, tf_t = pre
-        with spans.span("view.tail"):
+        g = self._tile_graphs
+        with spans.span("view.tail") as span:
+            tiles, graph_tiles = g.tiles, g.graph_tiles
             rgb, _, acc, nd = render_rays_compact(
                 self.model, smpl, sp, tp, latent, *rays, self.n_samples,
                 capacity=cap, tile=self.tile, fine_capacity=fcap,
                 white_bkgd=self.white_bkgd, plan=plan, fine_plan=fplan,
-                fine_ids=fids, tf_t=tf_t)
+                fine_ids=fids, tf_t=tf_t, graphs=g)
+            if span is not None:
+                span.attrs.update(tiles=g.tiles - tiles,
+                                  graph_tiles=g.graph_tiles - graph_tiles)
         return rgb, acc, nd
 
     def prewarm(self, sp_item: Dict, tp_item: Dict, k: int = 0,

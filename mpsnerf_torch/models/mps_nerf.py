@@ -55,10 +55,7 @@ from mpsnerf_torch.models.sparse_conv import SparseConvNet3D
 from mpsnerf_torch.models.transformer import ViewFusionTransformer
 from mpsnerf_torch.ops.body_grid import grid_lookup
 from mpsnerf_torch.ops.compact import compact, expand_gather, plan_compaction
-from mpsnerf_torch.ops.grid_sample import (
-    grid_sample_2d_patch,
-    index_features_patch,
-)
+from mpsnerf_torch.ops.grid_sample import grid_sample_2d_patch
 from mpsnerf_torch.ops.knn import (
     VertexBuckets,
     kernel_buckets,
@@ -258,29 +255,87 @@ class MPSNeRF(nn.Module):
         pix = torch.einsum("vij,vnj->vni", K_all, cam)
         return pix[..., :2] / (pix[..., 2:] + 1e-5), image_size
 
+    def _view_coords(self, sp_input, world_src_pts):
+        """World points -> each source view's normalized image coords
+        (V, N, 2), in [-1, 1] over the full image; the latent and the
+        image are both sampled there (align_corners against each one's
+        own resolution)."""
+        uv, image_size = self._project_uv(sp_input, world_src_pts)
+        size = device_constant(image_size, uv.dtype, uv.device)
+        return 2.0 * uv / size - 1.0
+
+    def _sample_views(self, sp_input, latent, coords):
+        """K2 at ``coords``: the latent samples (V, N, C) and, where the
+        model reads them, the image rgb samples (V, N, 3) (else None)."""
+        feats = grid_sample_2d_patch(latent, coords).permute(0, 2, 1)
+        rgb_s = None
+        if self.append_rgb or self.blend_rgb:
+            rgb_s = grid_sample_2d_patch(sp_input["img_all"],
+                                         coords).permute(0, 2, 1)
+        return feats, rgb_s
+
     def _view_features(self, sp_input, latent, world_src_pts, fuse=True):
         """Project points into each source view, sample pixel-aligned
         features (+ PE'd image rgb), fuse across views -> (f1, f2, the
         sampled rgb (V, N, 3) or None).  ``fuse=False`` returns the
         per-view latent samples (V, N, C) alone."""
-        uv, image_size = self._project_uv(sp_input, world_src_pts)
-        feats = index_features_patch(latent, uv, image_size).permute(0, 2, 1)
+        coords = self._view_coords(sp_input, world_src_pts)
         if not fuse:
-            return feats
-        rgb_s = None
-        if self.append_rgb or self.blend_rgb:
-            size = device_constant(image_size, uv.dtype, uv.device)
-            rgb_s = grid_sample_2d_patch(
-                sp_input["img_all"], 2.0 * uv / size - 1.0
-            ).permute(0, 2, 1)  # (V, N, 3)
+            return grid_sample_2d_patch(latent, coords).permute(0, 2, 1)
+        feats, rgb_s = self._sample_views(sp_input, latent, coords)
+        f1, f2 = self._fuse_views(feats, rgb_s)
+        return f1, f2, rgb_s
+
+    def _fuse_views(self, feats, rgb_s):
+        """The view fusion of the sampled features (+ the PE'd image rgb)
+        -> (f1 (density), f2 (rgb)), each (N, C')."""
         if self.append_rgb:
             feats = torch.cat([feats, positional_encoding(rgb_s, 4)], dim=-1)
         if self.use_transformer:
             # only fused[0] (density) and fused[1] (rgb) are read
             fused = self.transformer(feats, out_views=2)
-            return fused[0], fused[1], rgb_s
+            return fused[0], fused[1]
         mean = torch.mean(feats, dim=0)
-        return mean, mean, rgb_s
+        return mean, mean
+
+    # The fine-mode query of a tile is three stretches between its kernel
+    # launches: ``_to_canonical`` (after ``world_to_smpl``), the canonical
+    # 1-NN (K1), ``_to_source_views``, the two K2 samples
+    # (``_sample_views``), ``_raw_from_views``.  ``query``'s tail runs them
+    # eagerly; ``renderer/tile_graphs.py`` captures the same three methods
+    # as CUDA graphs and replays them around the same eager K1 and K2.
+
+    def _to_canonical(self, smpl, tf_t, q_pts, q_ids):
+        """Target-pose SMPL points with their nearest target vertices ->
+        the canonical big pose (the inverse LBS)."""
+        return deform_target_to_canonical(smpl, tf_t, q_pts, q_ids,
+                                          mean_shape=self.mean_shape)
+
+    def _to_source_views(self, smpl, tf_s, sp_input, can, ids_c,
+                         weights_corr=None, instance=False):
+        """Canonical points with their nearest canonical vertices -> the
+        source pose (the forward LBS, then the instance model's backward
+        correction where ``instance``) and each source view's normalized
+        image coords: (src, world, bweights, the correction or None,
+        coords (V, N, 2))."""
+        src, world, bw = deform_canonical_to_source(
+            smpl, tf_s, can, ids_c, self.mean_shape, weights_corr)
+        corr_b = None
+        if instance:
+            # the backward correction of the source-pose points, from the
+            # source's voxel grid at the (detached) warped points
+            p3d_s = self._features_3d(sp_input, src.detach())
+            corr_b = self.backward_correction(
+                self._instance_input(src, sp_input, p3d_s))
+            src = src + corr_b
+            world = smpl_to_world(src, tf_s.R, tf_s.Th)
+        return src, world, bw, corr_b, self._view_coords(sp_input, world)
+
+    def _raw_from_views(self, can, viewdirs, feats, rgb_s):
+        """The views' samples at canonical points -> (rgb, alpha): the
+        view fusion and the NeRF MLP."""
+        f1, f2 = self._fuse_views(feats, rgb_s)
+        return self._nerf_mlp(can, f1, f2, viewdirs, rgb_s)
 
     def _instance_code(self, item, k):
         idx = item["instance_idx"].reshape(1).long()
@@ -393,8 +448,7 @@ class MPSNeRF(nn.Module):
             n_dropped = torch.clamp(cplan.n_valid - capacity, min=0)
 
         if not geometry_only:
-            can_pts = deform_target_to_canonical(
-                smpl, tf_t, q_pts, q_ids, mean_shape=self.mean_shape)
+            can_pts = self._to_canonical(smpl, tf_t, q_pts, q_ids)
         t_vertices = sp_input["t_vertices"]
         if t_buckets is None:
             t_buckets = kernel_buckets(t_vertices)
@@ -435,19 +489,10 @@ class MPSNeRF(nn.Module):
                                   self._instance_code(tp_input,
                                                       can.shape[0])], dim=-1)
                 weights_corr = self.backward_deform(code)
-            src, world, bw = deform_canonical_to_source(
-                smpl, tf_s, can, ids_c, self.mean_shape, weights_corr)
-            corr_b = None
-            if instance:
-                # the backward correction of the source-pose points, from
-                # the source's voxel grid at the (detached) warped points
-                p3d_s = self._features_3d(sp_input, src.detach())
-                corr_b = self.backward_correction(
-                    self._instance_input(src, sp_input, p3d_s))
-                src = src + corr_b
-                world = smpl_to_world(src, tf_s.R, tf_s.Th)
-            f1, f2, rgb_s = self._view_features(sp_input, latent, world)
-            rgb_, alpha_ = self._nerf_mlp(can, f1, f2, viewdirs, rgb_s)
+            src, world, bw, corr_b, coords = self._to_source_views(
+                smpl, tf_s, sp_input, can, ids_c, weights_corr, instance)
+            feats, rgb_s = self._sample_views(sp_input, latent, coords)
+            rgb_, alpha_ = self._raw_from_views(can, viewdirs, feats, rgb_s)
             return alpha_, rgb_, src, world, bw, ids_c, corr_b
 
         if compute_normals:

@@ -5,7 +5,10 @@ Depth-2, 4-head, dim_head-64 pre-norm transformer with residuals over the
 V input views of each query point; tokens are (V, N, dim), view-major.
 Module names follow the reference checkpoint
 (``transformer.layers.{i}.{0,1}.fn.{norm,fn}.*``).  Exact erf GELU and
-LayerNorm eps 1e-5.
+LayerNorm eps 1e-5: on fp32 CUDA rows that autograd does not record (the
+served and eval renders) and that the kernel holds (up to 160 wide), the
+hand-written kernel of ``ops/layer_norm.py``; else ``nn.LayerNorm``
+(every train step, the CPU).
 
 ``dtype`` (bfloat16 or None) is the compute dtype, as in the JAX package:
 the parameters, the LayerNorm statistics and the residual stream stay
@@ -24,6 +27,14 @@ import torch
 from torch import nn
 
 from mpsnerf_torch.models.layers import TorchLinear
+from mpsnerf_torch.ops.layer_norm import MAX_WIDTH, layer_norm_cuda
+
+
+def autograd_records(x: torch.Tensor, norm: nn.LayerNorm) -> bool:
+    """Whether autograd records a LayerNorm of ``x`` by ``norm``."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or norm.weight.requires_grad
+        or norm.bias.requires_grad)
 
 
 class PreNorm(nn.Module):
@@ -35,7 +46,14 @@ class PreNorm(nn.Module):
         self.compute_dtype = dtype
 
     def forward(self, x, **kwargs):
-        y = self.norm(x)  # statistics in the input's float32
+        # statistics in the input's float32; the hand-written kernel where
+        # autograd records nothing (it has no backward) and it holds the row
+        n = self.norm
+        if x.is_cuda and x.dtype == torch.float32 and \
+                x.shape[-1] <= MAX_WIDTH and not autograd_records(x, n):
+            y = layer_norm_cuda(x, n.weight, n.bias, n.eps)
+        else:
+            y = n(x)
         if self.compute_dtype is not None:
             y = y.to(self.compute_dtype)
         return self.fn(y, **kwargs)

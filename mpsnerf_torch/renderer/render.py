@@ -45,6 +45,7 @@ from mpsnerf_torch.ops.composite import (
     stratified_z_vals,
 )
 from mpsnerf_torch.ops.knn import kernel_buckets, nearest_vertex
+from mpsnerf_torch.renderer.tile_graphs import TileGraphs, graphable
 from mpsnerf_torch.smpl.lbs import PoseTransforms, world_to_smpl
 from mpsnerf_torch.smpl.model import SMPLModel
 
@@ -295,6 +296,7 @@ def render_rays_compact(
     fine_plan: Optional[Compaction] = None,  # from fine_rays_compact
     fine_ids: Optional[torch.Tensor] = None,  # from fine_rays_compact
     tf_t: Optional[PoseTransforms] = None,   # the target pose's transforms
+    graphs: Optional[TileGraphs] = None,     # the caller's tile graphs
 ):
     """Whole-view render with global compaction (perturb = 0).  Returns
     ``(rgb (R, 3), disp (R,), acc (R,), n_dropped ())``; ``n_dropped > 0``
@@ -310,7 +312,12 @@ def render_rays_compact(
     saves the in-render cull; without it the body grid is read here.
     The source and the target pose's transforms are built once for the
     view (the target's taken from the pre-passes' caller when given) and
-    passed to every tile, whose query then does only per-point work."""
+    passed to every tile, whose query then does only per-point work.
+    With ``graphs`` (a caller's :class:`TileGraphs`, kept across views) a
+    fine-mode tile that :func:`graphable` admits replays the query as CUDA
+    graphs around its eager 1-NN and K2 launches, bit-equal to ``query``
+    (``renderer/tile_graphs.py``); ``graphs`` counts the tiles and the
+    replayed ones."""
     if capacity % tile or fine_capacity % tile:
         raise ValueError(f"render_rays_compact: capacities {capacity}, "
                          f"{fine_capacity} are not multiples of {tile}")
@@ -348,18 +355,33 @@ def render_rays_compact(
         out_cap = capacity
         tail_model = (model if model.compact_fraction is None
                       else model.with_compact_fraction(None))
-    rgb_t = pts.new_empty(out_cap, 3)
-    sig_t = pts.new_empty(out_cap)
+    # every sample's point and direction (24 bytes a sample) are not read
+    # again: freed before the tiles, as the compacted ones are before the
+    # compositing (the view's allocated peak is in the compositing)
+    del pts, vd
+    raw4 = cpts.new_empty(out_cap, 4)  # each tile's raw rgb and sigma
+    run = None
+    if graphs is not None and cids is not None and \
+            graphable(tail_model, cpts.device):
+        run = graphs.bind(tail_model, smpl, sp_input, latent, transforms,
+                          tile)
     for s in range(0, out_cap, tile):
+        if run is not None:
+            run(cpts[s:s + tile], cvd[s:s + tile], cids[s:s + tile],
+                t_buckets, raw4[s:s + tile])
+            continue
         raw = tail_model.query(
             smpl, sp_input, tp_input, latent, cpts[s:s + tile],
             cvd[s:s + tile], nn_ids=None if cids is None else cids[s:s + tile],
             t_buckets=t_buckets, transforms=transforms)
-        rgb_t[s:s + tile] = raw.rgb
-        sig_t[s:s + tile] = raw.sigma
+        raw4[s:s + tile, :3] = raw.rgb
+        raw4[s:s + tile, 3] = raw.sigma
+    if graphs is not None:
+        graphs.tiles += out_cap // tile
+        graphs.graph_tiles += out_cap // tile if run is not None else 0
+    del cpts, cvd, cids
 
-    full4 = expand_scatter(
-        out_plan, torch.cat([rgb_t, sig_t[:, None]], dim=-1), MASK_FILL)
+    full4 = expand_scatter(out_plan, raw4, MASK_FILL)
     out = composite_rays(
         full4[:, :3].reshape(r, n_samples, 3),
         full4[:, 3].reshape(r, n_samples),

@@ -3,7 +3,8 @@ transforms built once (``render_rays_compact``), and the constants that
 the query's ops make once a device (``utils/constants.py``), on a 64²
 synthetic view (600 vertices, 16 samples a ray).  No JAX: the reference
 is the port's own per-tile build.  The card-only test shows that a
-fine-mode tile's query does not synchronise."""
+fine-mode tile (its graphs' replay, or its query) does not
+synchronise."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ from mpsnerf_torch.ops.grid_sample import (
     index_features_patch,
 )
 from mpsnerf_torch.ops.positional import positional_encoding
-from mpsnerf_torch.renderer import render
+from mpsnerf_torch.renderer import render, tile_graphs
 from mpsnerf_torch.smpl.lbs import PoseTransforms
 from mpsnerf_torch.utils import constants
 # by the test directory's own path: a machine with the card may have an
@@ -225,26 +226,31 @@ def test_cached_constants_keep_the_old_formulas_bits(dtype, monkeypatch):
 
 @pytest.mark.card
 def test_a_tile_query_does_not_synchronise(card, monkeypatch):
-    """After a warm-up, every fine-mode tile's query with the view's
-    transforms runs with the stream's sync checks raising: nothing in a
-    tile waits on the card."""
+    """After a warm-up, every fine-mode tile with the view's transforms
+    (the replay of its CUDA graphs, or an eager query) runs with the
+    stream's sync checks raising: nothing in a tile waits on the card."""
     s = _scene(card)
     vr = ViewRenderer(s["model"], lambda gender: s["smpl"],
                       n_samples=N_SAMPLES, tile=512, device=card)
-    vr.render_view(s["sp_item"], s["tp_item"], VIEW)  # warm-up
+    vr.render_view(s["sp_item"], s["tp_item"], VIEW)  # warm-up, capture
     torch.cuda.synchronize()
 
-    query, seen = MPSNeRF.query, []
+    seen = []
 
-    def checked(self, *a, **k):
-        seen.append(k.get("transforms") is not None)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return query(self, *a, **k)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    def checked(fn, hoisted):
+        def call(self, *a, **k):
+            seen.append(hoisted(self, k))
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(self, *a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return call
 
-    monkeypatch.setattr(MPSNeRF, "query", checked)
+    monkeypatch.setattr(MPSNeRF, "query", checked(
+        MPSNeRF.query, lambda self, k: k.get("transforms") is not None))
+    monkeypatch.setattr(tile_graphs._Captured, "run", checked(
+        tile_graphs._Captured.run, lambda self, k: self.replays is not None))
     vr.render_view(s["sp_item"], s["tp_item"], VIEW)
     assert vr.last_view.fine_capacity // vr.tile == len(seen) >= 2
     assert all(seen)
