@@ -24,7 +24,7 @@ non-zero):
      to 1e-5 of its max |value|; with a gg image in both layouts and
      without one) at the training shapes, latent 3x128x128x128
      (channels-last as the encoder gives it, with g in both layouts, and
-     (V, C, H, W)-contiguous, whose per-call copy is counted) and RGB
+     (V, C, H, W)-contiguous, which the wrappers copy per call) and RGB
      3x3x512x512 at 64,512 points; once phases 4 and 5 have captured
      them, K1 on a served view's tail tile and on a plain step's two
      calls (ids and d2 equal; the pairs the kernel evaluated beside the
@@ -41,23 +41,20 @@ non-zero):
      1e-3 of its tensor's max |grad|; ``run_synthetic_eval`` (every
      per-image metric to 1e-4 relative);
   4. serving at full width: 3 input views at 512^2, the flagship model
-     with seeded weights, 128 samples per ray, ``ViewRenderer`` for 3
-     requests after one warm-up view (each timed from the request to its
-     image on the device, ``render_view_async``; the host's fetch and
-     scatter, ``finish_view``, apart); each request must drop
-     nothing, give finite pixels, accumulate opacity > 0.5 on > 1 % of the
-     pixels and launch K1 at least twice and K2 forward; the encoded
-     latent must be channels-last and K2 must copy no layout; every tail
-     tile must replay its CUDA graphs, and the LayerNorm launches must be
-     the replays' (the 4 a tile captured, times the tiles); K1's, the
-     LayerNorm's and all kernels' launches per view;
+     with seeded weights, 128 samples per ray, ``ViewRenderer``: one
+     warm-up view, whose encoded latent must be channels-last and which
+     captures the tail's CUDA graphs (its LayerNorm launches must be the
+     first tile's eager run's and the capture's, 4 each, and every tail
+     tile replayed); then 3 requests (``render_view_async``, then
+     ``finish_view``), each of which must drop nothing, give finite
+     pixels, accumulate opacity > 0.5 on > 1 % of the pixels, launch K1
+     at least twice and K2 forward, replay every tail tile and launch no
+     LayerNorm; K1's and the LayerNorm's launches per view;
   5. training at full width: ``Trainer.train_item`` on two items of the
      synthetic train split (3 input views at 512^2, 4 output views, 1000
      rays per view-step, 128 samples, perturb 1), 8 view-steps of which 2
      smooth; every step must drop nothing, give finite loss terms and
-     change the parameters, and K2 must copy no layout; then ms per plain
-     and per smooth step by CUDA events, peak memory, launches per step
-     and a profiler breakdown with K2's share of the busy time;
+     change the parameters, and every kernel of the path must launch;
   6. the 1-NN variant probe (``mpsnerf_torch.tools.knn_variant_probe``) at
      2,572,288 x 6890;
   7. kernel times: each kernel's times against its bound, the plain
@@ -128,8 +125,8 @@ non-zero):
      the host's ``build_plan`` time; (b) one served view each with
      ``correction_batch`` (512^2, global path), bf16 (512^2, pixels within
      1/255 of fp32's on the same weights) and ``human_sample 0`` (128^2,
-     the chunked path over every ray): ms to the image on the device and
-     the idle share; (c) ``run_nerf_batch_torch.main`` on the shipped
+     the chunked path over every ray): ms to the image on the device after
+     a warm-up render; (c) ``run_nerf_batch_torch.main`` on the shipped
      ``configs/h36m.txt`` (``--batch_size 1``, items loaded in the loop
      from a generator seeded so that the first item pairs two poses) for 2
      pair items over a 1000^2 H36M-layout
@@ -153,7 +150,7 @@ non-zero):
      non-zero (``CorrectionF3D``; zero for ``CorrectionUvhAgg``, which
      has none); (b) one served view of ``correction_by_f3d_fagg`` at
      256^2 through ``ViewRenderer`` on the chunked path: ms to the image,
-     the idle share, finite pixels, the acc > 0.5 share; (c)
+     finite pixels, the acc > 0.5 share; (c)
      ``run_nerf_batch_torch.main`` with ``--model correction_by_f3d_fagg
      --use_f2d 1 --data_set_type THuman_B_R`` on phase 9's THuman-layout
      fixture (15 pose entries): one item trained (24 view-steps, the
@@ -246,7 +243,8 @@ non-zero):
      JAX proofs' JSON keys, K1 and K2 (forward and backward) launched;
   then one ``{"kernels": [...]}`` line: each kernel's record from phase 7
      with its launches on each path (``launches``: phase 5;
-     ``launches_serving``: phase 4; ``launches_eval``,
+     ``launches_serving``: phase 4's 3 requests, and the LayerNorm's
+     ``launches_capture_view``: its warm-up view; ``launches_eval``,
      ``launches_hier_plain``, ``launches_hier_smooth``: phase 8;
      ``launches_cli``, ``launches_cli_eval``: phase 9;
      ``launches_variants``, ``launches_variant_views``,
@@ -262,10 +260,14 @@ non-zero):
      ``shapes["mesh_grid"]`` (phase 12 (e));
   15. the device line, last.
 
-Launch counts are set to 0 just before each path (phases 4, 5, 6, 8, 9,
-10, 11, 12, 14, and in every rank of phase 13 and of 12 (d)'s sharded
-request) and read just after; launches
-made to compare or time a kernel do not count.
+Launches are counted by kernel from outside the port: ``launch_spy``
+wraps ``cuda_build.launch``, through which every hand-written kernel goes
+on the stream, in this process and in every rank it spawns.  A CUDA
+graph's replay makes no host call, so a replayed LayerNorm is not
+counted; ``TileGraphs.graph_tiles`` shows the replays.  The counts are set
+to 0 just before each path (phases 4, 5, 6, 8, 9, 10, 11, 12, 14, and in
+every rank of phase 13 and of 12 (d)'s sharded request) and read just
+after; launches made to compare or time a kernel do not count.
 ``--stop-after N`` ends the run after phase N (a short check of a new
 kernel); it then prints no result lines.
 Weights are random, from seed 0, with the density head's bias set to +4 so
@@ -280,8 +282,13 @@ import subprocess
 import sys
 import time
 
-FLOPS_FP32 = 67e12   # H100 SXM fp32 rate outside the tensor cores (FMA = 2)
-HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 rate
+# the card's peaks and the kernels' bytes and operations, as the
+# benchmark counts them (an image counts the pixels a launch touches)
+from benchmark.harness.work import (
+    FLOPS_FP32, HBM_BYTES_S, bound_s, k2_bwd2_work, k2_bwd_work, k2_fwd_work,
+    touched_pixels,
+)
+
 FP32_LANES = 132 * 128  # H100 SXM: fp32 instructions issued a clock
 # arithmetic instructions per query-vertex pair that the sources lead one
 # to expect, none fused: K1's visit loop (3 subtractions, 3 products, 2
@@ -326,6 +333,13 @@ TRAIN_POINTS = 64512  # the tail capacity of 1000 rays x 128 samples
 
 def log(msg):
     print(msg, flush=True)
+
+
+def bound_ms(nbytes, ops):
+    """The benchmark's bound (``bound_s``) in ms, and what sets it: the
+    bytes or the operations."""
+    by = "bytes" if nbytes / HBM_BYTES_S >= ops / FLOPS_FP32 else "operations"
+    return bound_s(nbytes, ops) * 1e3, by
 
 
 def cuda_ms(fn, reps):
@@ -391,45 +405,51 @@ def host_us(fn, reps):
     return (t1 - t0) / reps * 1e6
 
 
-def _counters():
-    from mpsnerf_torch.ops import grid_sample, knn, layer_norm
+# launches by kernel (its C symbol without "mpsnerf_") while a
+# ``launch_spy`` is entered in this process
+COUNTS = collections.Counter()
+COUNTED = KERNEL_NAMES + ("layer_norm",)
 
-    return (knn.LAUNCHES, grid_sample.LAUNCHES, layer_norm.LAUNCHES)
+
+class launch_spy:
+    """While entered, wraps ``cuda_build.launch`` (every hand-written
+    kernel goes on the stream through it) and counts each launch in
+    ``COUNTS``.  Entered for the whole run and in every spawned rank."""
+
+    def __enter__(self):
+        from mpsnerf_torch import cuda_build
+
+        self.module, self.launch = cuda_build, cuda_build.launch
+
+        def counted(name, symbol, *args):
+            self.launch(name, symbol, *args)
+            COUNTS[symbol.removeprefix("mpsnerf_")] += 1
+
+        cuda_build.launch = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.launch = self.launch
 
 
 def reset_counts():
-    from mpsnerf_torch.ops import grid_sample
-
-    for counter in _counters() + (grid_sample.LAYOUT_COPIES,):
-        for k in counter:
-            counter[k] = 0
-
-
-def layout_copies():
-    """Channels-last copies K2's wrappers made since the last reset."""
-    from mpsnerf_torch.ops import grid_sample
-
-    return grid_sample.LAYOUT_COPIES["grid_sample_patch"]
+    COUNTS.clear()
 
 
 def read_counts():
-    out = {}
-    for counter in _counters():
-        out.update(counter)
-    return out
+    return {k: COUNTS[k] for k in COUNTED}
 
 
 class uncounted:
     """Launches inside the block (comparisons, timings) leave the counts
-    as they were.  (Layout copies are counted on: phase 2 reads them; each
-    path resets them before it runs.)"""
+    as they were."""
 
     def __enter__(self):
-        self.saved = [dict(c) for c in _counters()]
+        self.saved = COUNTS.copy()
 
     def __exit__(self, *exc):
-        for counter, saved in zip(_counters(), self.saved):
-            counter.update(saved)
+        COUNTS.clear()
+        COUNTS.update(self.saved)
 
 
 def fail(msg):
@@ -675,9 +695,11 @@ def compare_layer_norm(dev):
 
 
 def layer_norm_record(dev, err, train_launches, serving_launches,
-                      per_view):
+                      per_view, warm_up):
     """Phase 7: the LayerNorm kernel's record, timed at a served tail
-    tile's two row counts (its 3 views' rows, and the last layer's 2)."""
+    tile's two row counts (its 3 views' rows, and the last layer's 2).
+    A replayed view launches none: ``warm_up`` counts the capturing
+    view's, the first tile's eager run and the capture."""
     import torch
     import torch.nn.functional as F
 
@@ -687,8 +709,8 @@ def layer_norm_record(dev, err, train_launches, serving_launches,
     with uncounted(), torch.no_grad():
         for label, rows in LN_ROWS.items():
             x, w, b = layer_norm_inputs(rows, LN_WIDTH, rows, dev)
-            bound, by = _bound((2 * rows * LN_WIDTH + 2 * LN_WIDTH) * 4,
-                               8 * rows * LN_WIDTH)
+            bound, by = bound_ms((2 * rows * LN_WIDTH + 2 * LN_WIDTH) * 4,
+                                 8 * rows * LN_WIDTH)
             kernel = lambda: layer_norm_cuda(x, w, b, 1e-5)  # noqa: E731
             dev_ms = device_ms(kernel, 200)
             shapes[label] = {
@@ -709,8 +731,8 @@ def layer_norm_record(dev, err, train_launches, serving_launches,
                 f"F.layer_norm {r['library_ms']:.4f} ms")
     ok = train_launches["layer_norm"] == 0
     log(f"[7] layer_norm launches: train path {train_launches['layer_norm']}"
-        f" (0: autograd records it), served views {per_view}: "
-        f"{'ok' if ok else 'FAIL'}")
+        f" (0: autograd records it), the capturing view {warm_up}, served "
+        f"views {per_view} (replayed): {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(1)
     main = shapes["tile_3_views"]
@@ -718,8 +740,8 @@ def layer_norm_record(dev, err, train_launches, serving_launches,
         "name": "layer_norm", "route": "cuda", "source": LN_SOURCE,
         "replaces": LN_REPLACES, "launches": train_launches["layer_norm"],
         "launches_serving": serving_launches["layer_norm"],
-        "launches_per_view": per_view, "max_abs_err": err,
-        **main, "shapes": shapes}
+        "launches_per_view": per_view, "launches_capture_view": warm_up,
+        "max_abs_err": err, **main, "shapes": shapes}
 
 
 def scatter_f64(g, image, coords):
@@ -761,9 +783,8 @@ def compare_k2(name, shape, dev):
     """K2's three kernels against their plain versions at the training
     shape, on the image as the main path lays it out (the latent
     channels-last, the RGB as (V, 3, H, W)) and, for the latent, on a
-    (V, C, H, W)-contiguous copy too (the wrappers copy that one, and
-    count the copy); g in both layouts.  Returns the max abs error of
-    each kernel."""
+    (V, C, H, W)-contiguous copy too (the wrappers copy that one); g in
+    both layouts.  Returns the max abs error of each kernel."""
     import torch
 
     from mpsnerf_torch.ops import grid_sample as gs
@@ -783,7 +804,6 @@ def compare_k2(name, shape, dev):
                          "grid_sample_patch_bwd2"), 0.0)
     ok_all = True
     for label, img, gv, ggv in cases:
-        copies0 = gs.LAYOUT_COPIES["grid_sample_patch"]
         with uncounted():
             fk = gs.grid_sample_patch_fwd_cuda(img, coords)
             torch.cuda.synchronize()
@@ -812,9 +832,7 @@ def compare_k2(name, shape, dev):
                                                True)[1]
         outside = bool((dc[:, :TRAIN_POINTS // 10].abs().sum(-1) > 0)
                        .float().mean() > 0.5)
-        copies = gs.LAYOUT_COPIES["grid_sample_patch"] - copies0
-        wide_spread = img.shape[1] % 4 == 0 and img.stride(1) != 1
-        ok &= outside and copies == (4 if wide_spread else 0)
+        ok &= outside
         ok_all &= ok
         for kname, e in (("grid_sample_patch_fwd", f_err),
                          ("grid_sample_patch_bwd", b_err),
@@ -823,7 +841,7 @@ def compare_k2(name, shape, dev):
         log(f"[2] K2 {name} {tuple(shape)} ({label}) at {TRAIN_POINTS} "
             f"points: fwd max|diff| {f_err:.3g}; relative to max: {b_text}; "
             f"bwd2 {b2_text}; coordinate gradient beyond the border nonzero "
-            f"{outside}; layout copies {copies}: {'ok' if ok else 'FAIL'}")
+            f"{outside}: {'ok' if ok else 'FAIL'}")
     if not ok_all:
         raise SystemExit(1)
     return err
@@ -981,94 +999,6 @@ def seeded_model(device):
     return model.to(device).eval()
 
 
-def log_profile(tag, what, rows, wall_ms, unprofiled_ms, watch):
-    from mpsnerf_torch.tools.profile_step import gemm_ms
-
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    log(f"[{tag}] profiled {what}: kernels busy {busy_ms:.1f} ms of "
-        f"{unprofiled_ms:.1f} ms unprofiled time "
-        f"({100 * busy_ms / unprofiled_ms:.1f} %; idle "
-        f"{100 * (1 - busy_ms / unprofiled_ms):.1f} %), profiled wall "
-        f"{wall_ms:.1f} ms, {len(rows)} kernel names, "
-        f"{sum(e.count for e in rows)} launches")
-    shown = rows[:10] + [e for e in rows[10:]
-                         if any(w in e.key for w in watch)]
-    for e in shown:
-        log(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
-            f"{e.count:6d} x  {e.key[:100]}")
-    k2_ms = sum(e.self_device_time_total for e in rows
-                if "grid_sample" in e.key) / 1e3
-    log(f"[{tag}] K2 kernels in {what}: {k2_ms:.3f} ms, "
-        f"{100 * k2_ms / busy_ms:.1f} % of the busy time; GEMM kernels "
-        f"{gemm_ms(rows):.1f} ms, {100 * gemm_ms(rows) / busy_ms:.1f} %")
-
-
-def breakdown(renderer, smpl, item, k, unprofiled_ms):
-    """Where one view's time goes: the three stages of render_view timed
-    apart (synchronised between stages), then the same view under
-    torch.profiler: the kernels' summed device time against the view's
-    unprofiled time (the device's busy share), and the top kernels.
-    Returns the kernel launches of the profiled view."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from mpsnerf_torch.renderer.render import (
-        fine_rays_compact, plan_rays_compact, render_rays_compact,
-    )
-
-    from mpsnerf_torch.eval.runner import view_rays
-    from mpsnerf_torch.tools.profile_step import device_rows
-
-    dev = renderer.device
-    rays = view_rays(item, k, dev, item["mask_at_box_all"][k])[0]
-    sp = tp = renderer._device_side(item)
-    latent = renderer._latent_for(item, sp)
-    if not latent.is_contiguous(memory_format=torch.channels_last):
-        fail(f"[4] the encoded latent {tuple(latent.shape)} is not "
-             f"channels-last (strides {latent.stride()}): FAIL")
-    n, tile, ns = rays[0].shape[0], renderer.tile, renderer.n_samples
-    stages = {}
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        stages[name] = (time.perf_counter() - t0) * 1e3
-        return out
-
-    def round_up(c):
-        return max(1, -(-c // tile)) * tile
-
-    plan = timed("plan pre-pass", lambda: plan_rays_compact(
-        smpl, tp, *rays, ns, cap_max=round_up(n * ns)))
-    cap = round_up(int(plan.n_valid))
-    fplan, fids = timed("fine pre-pass (1 knn launch)",
-                        lambda: fine_rays_compact(smpl, tp, *rays, ns, plan,
-                                                  cap))
-    fcap = round_up(int(fplan.n_valid))
-    timed(f"render ({fcap // tile} tail tiles, 1 knn launch each)",
-          lambda: render_rays_compact(
-              renderer.model, smpl, sp, tp, latent, *rays, ns, capacity=cap,
-              fine_capacity=fcap, plan=plan, fine_plan=fplan, fine_ids=fids,
-              tile=tile))
-    log("[4] stages of view %d: %s" % (k, ", ".join(
-        f"{name} {ms:.1f} ms" for name, ms in stages.items())))
-
-    torch.cuda.synchronize()
-    with uncounted(), profile(activities=[ProfilerActivity.CPU,
-                                          ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pending = renderer.render_view_async(item, item, k)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        renderer.finish_view(pending)
-    rows = device_rows(prof)
-    log_profile("4", f"view {k}", rows, wall_ms, unprofiled_ms,
-                ("nearest_vertex", "grid_sample"))
-    return sum(e.count for e in rows)
-
-
 def compare_training(dev, n_importance=0):
     """One plain and one smooth training loss at 64^2 on the CPU and on
     the card with the same weights, rays and smooth delta (perturb 0, so
@@ -1170,17 +1100,13 @@ def compare_synthetic_eval(small, cpu_model, gpu_model, dev):
 
 
 def train_full_width(dev):
-    """Phase 5; returns the launches on the main path, the timed steps'
-    records and the captured K2 inputs of a plain and a smooth step."""
+    """Phase 5; returns the launches on the main path and the captured K1
+    and K2 inputs of a plain and a smooth step."""
     import math
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from mpsnerf_torch.data import to_device_input
     from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
     from mpsnerf_torch.train.trainer import TrainConfig, Trainer
-    from mpsnerf_torch.tools.profile_step import device_rows
 
     t0 = time.perf_counter()
     ds = SyntheticHumanDataset(n_poses=1, n_cameras=4, image_size=512,
@@ -1204,17 +1130,12 @@ def train_full_width(dev):
 
     h1 = trainer.optimizer.register_step_pre_hook(pre_hook)
     h2 = trainer.optimizer.register_step_post_hook(post_hook)
-    torch.cuda.synchronize()
     reset_counts()
-    t0 = time.perf_counter()
     logs = []
     for item in items:
         trainer.train_item(smpl, item, item)
         logs += trainer.last_logs
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = read_counts()
-    copies = layout_copies()
     h1.remove()
     h2.remove()
     n_smooth = sum(1 for terms, _ in logs if float(terms.smpl_normal) > 0)
@@ -1230,58 +1151,13 @@ def train_full_width(dev):
             f"{float(terms.smpl_normal):.4g}), psnr {float(psnr):.2f}, "
             f"n_dropped {float(terms.n_dropped):g}, parameter tensors "
             f"changed {100 * changed[s]:.0f} %: {'ok' if good else 'FAIL'}")
-    main_ok = ok and copies == 0 and all(
+    main_ok = ok and all(
         launches[k] > 0 for k in KERNEL_NAMES if k != "nearest_vertex_packed")
-    log(f"[5] 8 view-steps ({n_smooth} smooth) in {wall:.2f} s wall (first "
-        f"steps included); launches {json.dumps(launches)}; K2 layout "
-        f"copies {copies}: {'ok' if main_ok else 'FAIL'}")
+    log(f"[5] 8 view-steps ({n_smooth} smooth); launches "
+        f"{json.dumps(launches)}: {'ok' if main_ok else 'FAIL'}")
     if not main_ok:
         raise SystemExit(1)
-
-    # steps 8..12 timed one by one: smooth 8 and 12, plain 9-11
-    torch.cuda.reset_peak_memory_stats()
-    records = []
-    for _ in range(5):
-        smooth = trainer.smooth_now()
-        counts0 = read_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        terms, _ = trainer.view_step(smpl, items[1], items[1],
-                                     trainer.step % 4)
-        end.record()
-        torch.cuda.synchronize()
-        counts1 = read_counts()
-        records.append({"smooth": smooth, "ms": start.elapsed_time(end),
-                        "launches": {k: counts1[k] - counts0[k]
-                                     for k in KERNEL_NAMES},
-                        "n_dropped": float(terms.n_dropped)})
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for kind in (False, True):
-        rs = [r for r in records if r["smooth"] == kind]
-        times = ", ".join("%.1f" % r["ms"] for r in rs)
-        mean = sum(r["ms"] for r in rs) / len(rs)
-        log(f"[5] {'smooth' if kind else 'plain'} step: {times} ms (CUDA "
-            f"events; mean {mean:.1f}), launches per step "
-            f"{json.dumps(rs[0]['launches'])}")
-    log(f"[5] peak device memory over the timed steps {peak:.2f} GiB")
-
-    for smooth in (False, True):
-        # the step counter picks the kind (it moves the lr by < 0.1 %)
-        trainer.step += (-trainer.step) % 4 if smooth else \
-            (1 if trainer.step % 4 == 0 else 0)
-        unprofiled = [r["ms"] for r in records if r["smooth"] == smooth][-1]
-        torch.cuda.synchronize()
-        with uncounted(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            trainer.view_step(smpl, items[1], items[1], trainer.step % 4)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t1) * 1e3
-        log_profile("5", f"{'smooth' if smooth else 'plain'} step",
-                    device_rows(prof), wall_ms, unprofiled,
-                    ("nearest_vertex", "grid_sample"))
-    return launches, records, capture_train_inputs(trainer, smpl, items[1])
+    return launches, capture_train_inputs(trainer, smpl, items[1])
 
 
 def timed_eval(args, model, smpl, ds, dev, pipelined):
@@ -1994,6 +1870,31 @@ FIELDS = ("forward_deform", "backward_correction", "backward_deform",
           "encoder_3d", "latent_codes")
 
 
+def variant_model(model, over, device):
+    """``factory.return_model`` on the flagship config with ``--model``
+    and the flags ``over`` (name -> value), weights from seed 0, density
+    bias +4 (so that a random model's rays are not all empty).  Returns
+    (model, args)."""
+    import pathlib
+
+    import torch
+
+    from mpsnerf_torch.config import parse_args
+    from mpsnerf_torch.factory import return_model
+
+    config = pathlib.Path(__file__).resolve().parent / "configs"
+    argv = ["--config", str(config / "canonical_transformer.txt"),
+            "--model", model]
+    for k, v in over.items():
+        argv += [f"--{k}", str(v)]
+    args = parse_args(argv)
+    torch.manual_seed(0)
+    m = return_model(args)
+    with torch.no_grad():
+        m.alpha_linear.bias.fill_(4.0)
+    return m.to(device), args
+
+
 class kernel_spy:
     """Keeps the inputs of every K1 and K2 launch in the block (copies with
     their strides) as ``(stage, wrapper, args)``; ``stage`` is set by the
@@ -2092,7 +1993,6 @@ def train_variants(dev, size=512, n_verts=6890, n_rays=1000,
     from mpsnerf_torch.data import attach_spconv_plan, to_device_input
     from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
     from mpsnerf_torch.train.trainer import TrainConfig, Trainer
-    from mpsnerf_torch.tools.profile_step import variant_model
 
     t0 = time.perf_counter()
     ds = SyntheticHumanDataset(n_poses=2, n_cameras=4, image_size=size,
@@ -2217,17 +2117,12 @@ def variant_views(dev, item, smpl, size=512, small=128, n_samples=128):
     with bf16 (its pixels within 1/255 of fp32's, the same weights), one
     128^2 view with ``human_sample`` 0 (the chunked path over every ray):
     ms to the image on the device (CUDA events around
-    ``render_view_async``) and the idle share (profiled kernels' summed
-    time against the unprofiled view)."""
+    ``render_view_async``) after a warm-up render."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
     from mpsnerf_torch.eval.runner import ViewRenderer
-    from mpsnerf_torch.tools.profile_step import (
-        device_rows, gemm_ms, variant_model,
-    )
 
     def fresh(it):
         return {k: v for k, v in it.items() if not k.startswith("_")}
@@ -2237,8 +2132,7 @@ def variant_views(dev, item, smpl, size=512, small=128, n_samples=128):
                                 n_verts=item["vertices"].shape[0])
     s_item = sds.get_item(0, instance_idx=0)
     s_smpl = sds.smpl_for(0, device=dev)
-    # the fp32 reference of the bf16 view: its pixels only (phase 4 times
-    # the fp32 view)
+    # the fp32 reference of the bf16 view: its pixels only
     model, _ = variant_model("skinning_batch", {}, dev)
     view = fresh(item)
     with uncounted():
@@ -2257,14 +2151,8 @@ def variant_views(dev, item, smpl, size=512, small=128, n_samples=128):
         r = ViewRenderer(model, lambda g, rig=rig: rig, n_samples=n_samples,
                          tile=16384, device=dev)
         view = fresh(it)
-        # the profiled render is the warm-up (the latent, the plans): the
-        # kernels' device time does not depend on the host's lazy set-up
-        with uncounted(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with uncounted():  # the warm-up: the latent, the plans
             r.render_view(view, view, 1)
-            torch.cuda.synchronize()
-        rows = device_rows(prof)
-        busy = sum(e.self_device_time_total for e in rows) / 1e3
-        gemm = gemm_ms(rows)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2278,14 +2166,11 @@ def variant_views(dev, item, smpl, size=512, small=128, n_samples=128):
         ok = (np.isfinite(rgb).all() and rgb.shape == (hw * hw, 3)
               and stats.n_dropped == 0 and float((stats.acc > 0.5).mean())
               > 0.01 and r.global_compact == (label != "human_sample 0"))
-        out[label] = {"ms": ms, "busy_ms": busy, "idle": 1 - busy / ms,
-                      "gemm_ms": gemm, "global_path": r.global_compact,
+        out[label] = {"ms": ms, "global_path": r.global_compact,
                       "hit_rays": stats.hit_rays}
         path = "global" if r.global_compact else "chunked"
         log(f"[10] {label} view 1 at {hw}^2: {ms:.1f} ms to the image "
-            f"(CUDA events), kernels busy {busy:.1f} ms (idle "
-            f"{100 * (1 - busy / ms):.1f} %; GEMM kernels {gemm:.1f} ms, "
-            f"{100 * gemm / max(busy, 1e-9):.1f} % of busy), {path} path, "
+            f"(CUDA events), {path} path, "
             f"{stats.hit_rays} rays run, overflow chunks "
             f"{stats.n_overflow_chunks}, acc>0.5 on "
             f"{100 * float((stats.acc > 0.5).mean()):.1f} %: "
@@ -2629,7 +2514,8 @@ def time_variant_bwd(bwd_inputs):
         if not stage.startswith("correction_field"):
             continue
         v, c, h, w = image.shape
-        bound, by = _bound(*_bwd_work(v, c, h, w, coords.shape[1], need))
+        bound, by = bound_ms(*k2_bwd_work(
+            v, c, coords.shape[1], touched_pixels(coords, h, w), need))
         with uncounted():
             ms = cuda_ms(lambda: gs.grid_sample_patch_bwd_cuda(
                 g, image, coords, *need), 20)
@@ -2647,24 +2533,6 @@ def time_variant_bwd(bwd_inputs):
     return out
 
 
-def _bwd_work(v, c, h, w, n, need):
-    """Bytes (each input read once, each output written once) and
-    operations of one backward with the flags ``need``."""
-    need_image, need_coords = need
-    img_b, pts_b, vcn = 4 * v * h * w * c, 4 * v * n * 2, 4 * v * c * n
-    nbytes = vcn + pts_b + (img_b if need_image else 0) \
-        + ((img_b + pts_b) if need_coords else 0)
-    ops = v * c * n * ((8 if need_image else 0) + (20 if need_coords else 0))
-    return nbytes, ops
-
-
-def _bound(nbytes, ops):
-    bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    ops_ms = ops / FLOPS_FP32 * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
-
-
 def _library_bwd(g, image, coords, need):
     """The yardstick: autograd of F.grid_sample(padding_mode="border",
     align_corners=True) on the same inputs and flags.  Not the same
@@ -2680,27 +2548,6 @@ def _library_bwd(g, image, coords, need):
     wrt = [t for t, want in zip((img, grid), need) if want]
     gl = g[..., None]
     return lambda: torch.autograd.grad(out, wrt, gl, retain_graph=True)
-
-
-def _bwd2_work(v, c, h, w, n, gg_image, gg_coords, need):
-    """Bytes and operations of one double backward with these upstream
-    gradients and flags (each input the outputs need read once, each
-    output written once)."""
-    need_g, need_i, need_c = need
-    need_i = need_i and gg_coords
-    img_b, pts_b, vcn = 4 * v * h * w * c, 4 * v * n * 2, 4 * v * c * n
-    reads_corners = need_g or need_c
-    nbytes = pts_b + (vcn if need_i or need_c else 0) \
-        + (img_b if gg_coords and reads_corners else 0) \
-        + (img_b if gg_image and reads_corners else 0) \
-        + (pts_b if gg_coords else 0) + (vcn if need_g else 0) \
-        + (img_b if need_i else 0) + (pts_b if need_c else 0)
-    ops = v * c * n * ((7 if gg_image and need_g else 0)
-                       + (17 if gg_coords and need_g else 0)
-                       + (8 if need_i else 0)
-                       + (18 if gg_image and need_c else 0)
-                       + (5 if gg_coords and need_c else 0))
-    return nbytes, ops
 
 
 def _library_bwd2(g, image, coords, gg_image, gg_coords, need):
@@ -2763,7 +2610,7 @@ def k2_times(dev, errs, captured):
             image = channels_last(image)
         other = image.contiguous() if which == "latent" else \
             channels_last(image)
-        img_b, pts_b, vcn = 4 * v * h * w * c, 4 * v * n * 2, 4 * v * c * n
+        touched = touched_pixels(coords, h, w)
         with uncounted():
             def kernel():
                 return gs.grid_sample_patch_fwd_cuda(image, coords)
@@ -2785,8 +2632,8 @@ def k2_times(dev, errs, captured):
                 "host_us": host_us(kernel, 200),
                 "library_host_us": host_us(library, 200),
             }
-            fwd["bound_ms"], fwd["bound_by"] = _bound(
-                img_b + pts_b + vcn, v * c * n * 7 + v * n * 12)
+            fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+                *k2_fwd_work(v, c, n, touched))
             need = (True, True)
             bwd = {
                 "ms": cuda_ms(lambda: gs.grid_sample_patch_bwd_cuda(
@@ -2798,8 +2645,8 @@ def k2_times(dev, errs, captured):
                 "library_ms": cuda_ms(_library_bwd(g, image, coords, need),
                                       10),
             }
-            bwd["bound_ms"], bwd["bound_by"] = _bound(
-                *_bwd_work(v, c, h, w, n, need))
+            bwd["bound_ms"], bwd["bound_by"] = bound_ms(
+                *k2_bwd_work(v, c, n, touched, need))
             if which == "rgb":  # the smooth step's RGB call: coords only
                 bwd["coords_only_ms"] = cuda_ms(
                     lambda: gs.grid_sample_patch_bwd_cuda(
@@ -2827,10 +2674,10 @@ def k2_times(dev, errs, captured):
                 "library_no_gg_image_ms": maybe_ms(lambda: _library_bwd2(
                     g, image, coords, None, gg_c, n_smooth), 10),
             }
-            bwd2["bound_ms"], bwd2["bound_by"] = _bound(
-                *_bwd2_work(v, c, h, w, n, True, True, n3))
-            bwd2["no_gg_image_bound_ms"] = _bound(
-                *_bwd2_work(v, c, h, w, n, False, True, n_smooth))[0]
+            bwd2["bound_ms"], bwd2["bound_by"] = bound_ms(
+                *k2_bwd2_work(v, c, n, touched, True, True, n3))
+            bwd2["no_gg_image_bound_ms"] = bound_ms(
+                *k2_bwd2_work(v, c, n, touched, False, True, n_smooth))[0]
         other_name = "nchw_ms" if which == "latent" else "channels_last_ms"
         fwd[other_name] = fwd.pop("other_ms")
         for name, rec in (("grid_sample_patch_fwd", fwd),
@@ -2880,8 +2727,8 @@ def k2_times(dev, errs, captured):
                 "g_strides": list(g.stride()),
                 "image_strides": list(image.stride()),
             }
-        rec["bound_ms"], rec["bound_by"] = _bound(
-            *_bwd_work(v, c, h, w, n, need))
+        rec["bound_ms"], rec["bound_by"] = bound_ms(*k2_bwd_work(
+            v, c, n, touched_pixels(coords, h, w), need))
         sets[label.replace(" ", "_")] = rec
         log(f"[7] grid_sample_patch_bwd on the {label}'s latent inputs "
             f"{tuple(image.shape)} x {n}, need {need}: kernel "
@@ -2906,8 +2753,8 @@ def k2_times(dev, errs, captured):
             "library_ms": cuda_ms(_library_bwd(g, image, coords, need), 10),
             "shape": [list(image.shape), n],
         }
-    rec["bound_ms"], rec["bound_by"] = _bound(
-        *_bwd_work(v, c, h, w, n, need))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(*k2_bwd_work(
+        v, c, n, touched_pixels(coords, h, w), need))
     out["grid_sample_patch_bwd"]["rgb"]["plain_step_points"] = rec
     log(f"[7] grid_sample_patch_bwd on the RGB {tuple(image.shape)} at the "
         f"plain step's {n} points, need {need}: kernel {rec['ms']:.4f} ms, "
@@ -2932,8 +2779,9 @@ def k2_times(dev, errs, captured):
             "library_ms": maybe_ms(lambda: _library_bwd2(*args), 10),
             "shape": [list(image.shape), n],
         }
-    rec["bound_ms"], rec["bound_by"] = _bound(*_bwd2_work(
-        v, c, h, w, n, gg_image is not None, gg_coords is not None, need))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(*k2_bwd2_work(
+        v, c, n, touched_pixels(coords, h, w), gg_image is not None,
+        gg_coords is not None, need))
     out["grid_sample_patch_bwd2"]["captured"] = {"smooth_step": rec}
     out["grid_sample_patch_bwd2"]["smooth_step_inputs_ms"] = rec["ms"]
     log(f"[7] grid_sample_patch_bwd2 on the smooth step's latent inputs "
@@ -2951,8 +2799,6 @@ def knn_times(sets, clock_mhz, per_pair):
     with the time the card's issue rate needs for them and for every pair,
     ``cdist`` + ``min`` and, below 1M queries, the plain version.  Returns
     {label: record}."""
-    import torch
-
     from mpsnerf_torch.ops import knn
 
     rate = FP32_LANES * clock_mhz * 1e6  # fp32 instructions a second
@@ -3176,7 +3022,6 @@ def train_legacy(dev, size=512, n_verts=6890, n_rays=1000, n_samples=128):
     from mpsnerf_torch.data import attach_spconv_plan, to_device_input
     from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
     from mpsnerf_torch.train.trainer import TrainConfig, Trainer
-    from mpsnerf_torch.tools.profile_step import variant_model
 
     ds = SyntheticHumanDataset(n_poses=1, n_cameras=4, image_size=size,
                                n_verts=n_verts, split="train", n_rays=n_rays)
@@ -3293,16 +3138,13 @@ def legacy_view(dev, size=256, n_verts=6890, n_samples=128):
     ``size``^2 through ``ViewRenderer``, which must take the chunked path
     (every sample runs the network): ms to the image on the device (CUDA
     events around ``render_view_async``, which completes the chunked
-    path, fetch included) and the idle share (profiled kernels' summed
-    time against the unprofiled view).  Returns its launches, its times
-    and the kernels' inputs in the first chunk of its warm-up render."""
+    path, fetch included).  Returns its launches, its time and the
+    kernels' inputs in the first chunk of its warm-up render."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
     from mpsnerf_torch.eval.runner import ViewRenderer
-    from mpsnerf_torch.tools.profile_step import device_rows, variant_model
 
     ds = SyntheticHumanDataset(n_poses=1, n_cameras=6, input_views=[0, 2, 4],
                                image_size=size, n_verts=n_verts)
@@ -3311,16 +3153,12 @@ def legacy_view(dev, size=256, n_verts=6890, n_samples=128):
     model, _ = variant_model(LEGACY_CAPTURE, dict(LEGACY)[LEGACY_CAPTURE],
                              dev)
     r = ViewRenderer(model, lambda g: smpl, n_samples=n_samples, device=dev)
-    # the profiled render is the warm-up (the latent, the plans); the
-    # kernels' inputs in its first chunk are kept for phase 11 (d) (their
-    # copies, ~0.5 GB, add a fraction of a ms to its busy time)
+    # the warm-up render (the latent, the plans); the kernels' inputs in its
+    # first chunk are kept for phase 11 (d)
     spy = kernel_spy()
     with uncounted(), spy, nth_call(spy, "(b) view 1, chunk 0,",
-                                    ViewRenderer, "_chunk"), \
-            profile(activities=[ProfilerActivity.CUDA]) as prof:
+                                    ViewRenderer, "_chunk"):
         r.render_view(item, item, 1)
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in device_rows(prof)) / 1e3
     reset_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -3339,9 +3177,8 @@ def legacy_view(dev, size=256, n_verts=6890, n_samples=128):
           and opaque > 0.01 and launches["nearest_vertex"] > 0
           and launches["grid_sample_patch_fwd"] > 0)
     log(f"[11] {LEGACY_CAPTURE} view 1 at {size}^2: {ms:.1f} ms to the "
-        f"image (CUDA events), kernels busy {busy:.1f} ms (idle "
-        f"{100 * (1 - busy / ms):.1f} %), chunked path {not r.global_compact}"
-        f" (box cull {r.box_cull}), {stats.hit_rays} rays x {n_samples} "
+        f"image (CUDA events), chunked path {not r.global_compact} (box "
+        f"cull {r.box_cull}), {stats.hit_rays} rays x {n_samples} "
         f"samples run, acc>0.5 on {100 * opaque:.1f} %, finite "
         f"{bool(np.isfinite(rgb).all())}; launches {json.dumps(launches)}: "
         f"{'ok' if ok else 'FAIL'}")
@@ -3349,8 +3186,7 @@ def legacy_view(dev, size=256, n_verts=6890, n_samples=128):
         raise SystemExit(1)
     del r, model
     torch.cuda.empty_cache()
-    return (launches, {"ms": ms, "busy_ms": busy, "idle": 1 - busy / ms},
-            spy.calls)
+    return launches, {"ms": ms}, spy.calls
 
 
 def avi_check(path, want_frames, want_w, want_h):
@@ -3991,7 +3827,7 @@ _RANK_SPY = {}
 
 def serve_rank_arm():
     """On every rank of the served bundle's sharded render, before the
-    request that counts: the launch counts to 0; rank 0 (on the card)
+    request that counts: the launches counted from 0; rank 0 (on the card)
     keeps the K1 and K2 forward inputs of its next ``MPSNeRF.query``,
     its first query of the request.  Returns the rank."""
     import torch
@@ -3999,6 +3835,7 @@ def serve_rank_arm():
     from mpsnerf_torch.models.mps_nerf import MPSNeRF
     from mpsnerf_torch.parallel.mesh import DIST
 
+    _RANK_SPY["launches"] = launch_spy().__enter__()
     reset_counts()
     if DIST["rank"] == 0 and torch.device(DIST["device"]).type == "cuda":
         spy = kernel_spy().__enter__()
@@ -4013,6 +3850,7 @@ def serve_rank_read():
     holds K1 and K2's forward against their plain versions on what it
     kept (phase 13 (e)'s comparisons).  Returns ``(counts, errs)``."""
     counts = read_counts()
+    _RANK_SPY.pop("launches").__exit__()
     errs = {}
     if _RANK_SPY:
         _RANK_SPY.pop("first").__exit__()
@@ -4223,6 +4061,12 @@ class _clock:
             self.ms = (time.perf_counter() - self.t0) * 1e3
 
 
+def spied(fn, *args):
+    """``fn(*args)`` with its launches counted (a spawned rank's entry)."""
+    with launch_spy():
+        return fn(*args)
+
+
 def mesh_rank(items, u, delta, serve_item, render_rays, capacity, tile,
               n_verts):
     """One rank of phase 13 (a), (d) and (e), spawned on the card (gloo:
@@ -4406,8 +4250,6 @@ def _mesh_references(dev, items, u, delta, n_verts, n_samples):
     and smooth loss and gradients with its rank's ``u`` and ``delta``;
     and this process's repeat of item 0's first shard's two steps, their
     gradients against the first run's (``_grad_err``)."""
-    import torch
-
     from mpsnerf_torch.data import to_device_input
     from mpsnerf_torch.smpl.model import synthetic_smpl
     from mpsnerf_torch.train.trainer import TrainConfig, train_rays
@@ -4663,8 +4505,8 @@ def multi_device(dev, serve_item, size=512, n_verts=6890, n_rays=1000,
 
     # (a), (d), (e) on 4 ranks; the references here meanwhile
     t0 = time.perf_counter()
-    ranks = Ranks(mesh_rank, MESH_RANKS, (
-        items, u, delta, {k: v for k, v in serve.items()
+    ranks = Ranks(spied, MESH_RANKS, (
+        mesh_rank, items, u, delta, {k: v for k, v in serve.items()
                           if k not in HOST_ONLY_KEYS},
         render_rays, capacity, tile, n_verts),
         device=torch_type(dev), timeout_s=600)
@@ -4919,8 +4761,14 @@ def main(argv=None):
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    with launch_spy():
+        return smoke(stop_after)
 
+
+def smoke(stop_after):
+    """Phases 1 to ``stop_after``; returns the exit code."""
     import numpy as np
+    import torch
 
     from mpsnerf_torch import cuda_build
     from mpsnerf_torch.data import attach_body_grid, to_device_input
@@ -5065,31 +4913,31 @@ def main(argv=None):
     model = seeded_model(dev)
     renderer = ViewRenderer(model, lambda g: smpl, n_samples=n_samples,
                             tile=tile, device=dev)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    renderer.render_view(item, item, 1)  # warm-up (encodes the latent)
-    torch.cuda.synchronize()
-    log(f"[4] warm-up view in {time.perf_counter() - t0:.2f} s")
-    reset_counts()
-    launches, ln_launches, view_ms = [], [], []
     graphs = renderer._tile_graphs
+    # the warm-up view encodes the latent and captures the tail's graphs:
+    # the first tile runs eagerly once, then is captured (4 LayerNorm
+    # launches each), and every tile replays
+    reset_counts()
+    renderer.render_view(item, item, 1)
+    warm = read_counts()
+    latent = renderer._latent_for(item, renderer._device_side(item))
+    cl = latent.is_contiguous(memory_format=torch.channels_last)
+    ok = (cl and warm["layer_norm"] == 4 + 4
+          and graphs.graph_tiles == graphs.tiles > 0)
+    log(f"[4] warm-up view: the encoded latent {tuple(latent.shape)} "
+        f"channels-last {cl} (strides {latent.stride()}); tail tiles "
+        f"{graphs.tiles} ({graphs.graph_tiles} replayed), layer_norm "
+        f"launches {warm['layer_norm']} (4 eager, 4 captured): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        return 1
+    del latent
+    reset_counts()
+    launches, ln_launches = [], []
     for k in (1, 3, 5):
         before = read_counts()
         tiles, graph_tiles = graphs.tiles, graphs.graph_tiles
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        # the view's time: from the request to its image on the device;
-        # the host's fetch and scatter into the full image (finish_view)
-        # are timed apart
-        t0 = time.perf_counter()
-        start.record()
-        pending = renderer.render_view_async(item, item, k)
-        end.record()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        rgb = renderer.finish_view(pending)
-        finish_ms = (time.perf_counter() - t0) * 1e3
+        rgb = renderer.finish_view(renderer.render_view_async(item, item, k))
         out = renderer.last_view
         after = read_counts()
         n_launch = after["nearest_vertex"] - before["nearest_vertex"]
@@ -5102,16 +4950,11 @@ def main(argv=None):
         finite = bool(np.isfinite(rgb).all())
         ok = (out.n_dropped == 0 and finite and opaque > 0.01
               and n_launch >= 2 and n_fwd >= 2
-              and replayed == n_tiles > 0
-              and graphs._captured.replay_norms == 4
-              and n_ln == 4 * n_tiles
+              and replayed == n_tiles > 0 and n_ln == 0
               and rgb.shape == (512 * 512, 3))
         launches.append(n_launch)
         ln_launches.append(n_ln)
-        view_ms.append(start.elapsed_time(end))
-        log(f"[4] view {k}: {view_ms[-1]:.1f} ms (CUDA events), "
-            f"{wall * 1e3:.1f} ms wall, then {finish_ms:.1f} ms to fetch "
-            f"and scatter the image (host); hit rays {out.hit_rays}, candidates "
+        log(f"[4] view {k}: hit rays {out.hit_rays}, candidates "
             f"{out.n_candidates}, capacity {out.capacity}, body points "
             f"{out.n_body}, fine capacity {out.fine_capacity}, tail tiles "
             f"{n_tiles} ({replayed} replayed), knn launches {n_launch}, K2 "
@@ -5121,18 +4964,10 @@ def main(argv=None):
         if not ok:
             return 1
     serving_launches = read_counts()
-    copies = layout_copies()
-    log(f"[4] peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean view "
-        f"{sum(view_ms) / len(view_ms):.1f} ms; launches "
-        f"{json.dumps(serving_launches)}; K2 layout copies {copies}: "
-        f"{'ok' if copies == 0 else 'FAIL'}")
-    if copies:
-        return 1
-    view_launches = breakdown(renderer, smpl, item, 1, view_ms[0])
-    log(f"[4] launches per served view (view 1): K1 {launches[0]}, bucket "
-        f"builds {serving_launches['vertex_buckets'] // 3}, layer_norm "
-        f"{ln_launches[0]}, all kernels {view_launches}")
+    log(f"[4] launches over the 3 views {json.dumps(serving_launches)}; per "
+        f"served view (view 1): K1 {launches[0]}, bucket builds "
+        f"{serving_launches['vertex_buckets'] // 3}, layer_norm "
+        f"{ln_launches[0]}")
     tail_sets, n_tiles = capture_view_knn(renderer, item, 1)
     log(f"[4] captured K1's inputs of view 1: the fine pre-pass and tail "
         f"tile {n_tiles // 2} of {n_tiles}")
@@ -5140,7 +4975,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     # ---- 5. training at full width
-    train_launches, _, captured = train_full_width(dev)
+    train_launches, captured = train_full_width(dev)
     captured["knn"] = {**tail_sets, **captured["knn"]}
     # phase 2 on the inputs phases 4 and 5 captured
     for key, e in compare_captured(captured).items():
@@ -5227,7 +5062,8 @@ def main(argv=None):
             "replaces": GS_REPLACES[name], "launches": train_launches[name],
             "launches_serving": serving_launches[name], **rec})
     records.append(layer_norm_record(dev, ln_err, train_launches,
-                                     serving_launches, ln_launches))
+                                     serving_launches, ln_launches,
+                                     warm["layer_norm"]))
     if stop_after <= 7:
         return 0
 

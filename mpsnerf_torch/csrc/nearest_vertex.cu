@@ -344,8 +344,8 @@ nearest_vertex_kernel(const float* __restrict__ q, int64_t n,
 // table is read once with coalesced loads.  A cluster could spread the
 // runs over SMs; one block is kept.  A merge thread writes 8 outputs: 16
 // took 13 % more merge cycles at 6890 vertices and 41 % more at 20,000.
-// What is left bounds it (mpsnerf_torch/tools/bucket_build_phases.py on an
-// H100 SXM at 6890 vertices): the merge rounds take ~40 % of the SM
+// What is left bounds it (SM clock stamps after each phase, on an H100
+// SXM at 6890 vertices): the merge rounds take ~40 % of the SM
 // cycles, the warp runs ~32 %, the bucket pass ~22 %, the box ~6 %; each
 // is integer issue and shuffles on the one SM, not barrier waits.
 
@@ -357,17 +357,6 @@ constexpr int kPerLane = 8;                // keys a lane sorts; a thread
 constexpr int kRun = 32 * kPerLane;        // keys a warp sorts: 256
 constexpr int kMaxSharedKeys = 8192;       // both buffers in shared: 128 KB
 constexpr unsigned long long kPad = ~0ull;
-
-// Built with -DMPSNERF_BUILD_STAMPS (mpsnerf_torch/tools/
-// bucket_build_phases.py), thread 0 reads the SM clock at the start and
-// after each phase; the library the wrappers load has no stamps.
-#ifdef MPSNERF_BUILD_STAMPS
-__device__ long long build_stamps[5];
-#define BUILD_STAMP(n) \
-  if (threadIdx.x == 0) build_stamps[n] = clock64()
-#else
-#define BUILD_STAMP(n)
-#endif
 
 // where key i of a buffer is stored: permuted within its aligned group of
 // 16 by bits 4-7 of i
@@ -512,7 +501,6 @@ vertex_buckets_kernel(const float* __restrict__ v, int nv,
   unsigned long long* src = scratch ? scratch : skeys;
   unsigned long long* dst = src + runs * kRun;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  BUILD_STAMP(0);
 
   // 1. the box
   float x[kPerLane], y[kPerLane], z[kPerLane];
@@ -558,7 +546,6 @@ vertex_buckets_kernel(const float* __restrict__ v, int nv,
     }
   }
   __syncthreads();
-  BUILD_STAMP(1);
 
   // 2. the runs, each sorted by its warp
   for (int q = warp; q < runs; q += kBuildWarps) {
@@ -586,7 +573,6 @@ vertex_buckets_kernel(const float* __restrict__ v, int nv,
     for (int r = 0; r < kPerLane; ++r) src[out ^ r] = k[r];
   }
   __syncthreads();
-  BUILD_STAMP(2);
 
   // 3. the merge rounds
   for (int len = kRun; len < nv; len <<= 1) {
@@ -597,7 +583,6 @@ vertex_buckets_kernel(const float* __restrict__ v, int nv,
     dst = src;
     src = done;
   }
-  BUILD_STAMP(3);
 
   // 4. the buckets, the last one padded with the last vertex
   const int nb = (nv + kBucket - 1) / kBucket;
@@ -632,10 +617,6 @@ vertex_buckets_kernel(const float* __restrict__ v, int nv,
       boxes[2 * b + 1] = make_float4(hx, hy, hz, 0.f);
     }
   }
-#ifdef MPSNERF_BUILD_STAMPS
-  __syncthreads();
-#endif
-  BUILD_STAMP(4);
 }
 
 constexpr int kMaxDevices = 64;
@@ -741,11 +722,3 @@ extern "C" int mpsnerf_vertex_buckets(const void* v, int64_t nv, void* scratch,
       static_cast<float4*>(table), static_cast<float4*>(boxes));
   return static_cast<int>(cudaGetLastError());
 }
-
-#ifdef MPSNERF_BUILD_STAMPS
-// the 5 stamps of the last build: int64 SM clocks
-extern "C" int mpsnerf_build_stamps(void* out) {
-  return static_cast<int>(
-      cudaMemcpyFromSymbol(out, build_stamps, sizeof(build_stamps)));
-}
-#endif

@@ -274,18 +274,6 @@ class MPSNeRF(nn.Module):
                                          coords).permute(0, 2, 1)
         return feats, rgb_s
 
-    def _view_features(self, sp_input, latent, world_src_pts, fuse=True):
-        """Project points into each source view, sample pixel-aligned
-        features (+ PE'd image rgb), fuse across views -> (f1, f2, the
-        sampled rgb (V, N, 3) or None).  ``fuse=False`` returns the
-        per-view latent samples (V, N, C) alone."""
-        coords = self._view_coords(sp_input, world_src_pts)
-        if not fuse:
-            return grid_sample_2d_patch(latent, coords).permute(0, 2, 1)
-        feats, rgb_s = self._sample_views(sp_input, latent, coords)
-        f1, f2 = self._fuse_views(feats, rgb_s)
-        return f1, f2, rgb_s
-
     def _fuse_views(self, feats, rgb_s):
         """The view fusion of the sampled features (+ the PE'd image rgb)
         -> (f1 (density), f2 (rgb)), each (N, C')."""
@@ -469,8 +457,11 @@ class MPSNeRF(nn.Module):
                 else:
                     agg_pts = (compact(cplan, world_pts) if cplan is not None
                                else world_pts).detach()
-                agg = self._view_features(sp_input, latent, agg_pts,
-                                          fuse=False).mean(dim=0)
+                # the latent sampled in each source view (V, N, C),
+                # averaged over the views
+                agg = grid_sample_2d_patch(
+                    latent, self._view_coords(sp_input, agg_pts)
+                ).permute(0, 2, 1).mean(dim=0)
                 fused = torch.cat([positional_encoding(q_pts, 6), p3d, agg],
                                   dim=-1)
             correction_c = self.forward_deform(fused)

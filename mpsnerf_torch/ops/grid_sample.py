@@ -32,7 +32,7 @@ strides, so no call copies a layout: the encoder's latent is channels-last
 over channels, the image gradient summed per distinct pixel of a 64-point
 tile before one vector atomic), the RGB lies as (V, 3, H, W) (the
 per-point kernels).  Only a wide image (C % 4 == 0) whose channels are
-not innermost is copied to channels-last, counted in ``LAYOUT_COPIES``.
+not innermost is copied to channels-last.
 The forward returns (V, C, N) as a view of (V, N, C) memory, as the plain
 version does, and so does the double backward's d g.  The backward and
 the double backward compute only the gradients the running backward
@@ -53,14 +53,8 @@ from typing import List, Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from mpsnerf_torch import cuda_build
 from mpsnerf_torch.utils.constants import device_constant
-
-# launches of the CUDA kernels since the last reset (chip_smoke.py reads it)
-LAUNCHES = {"grid_sample_patch_fwd": 0, "grid_sample_patch_bwd": 0,
-            "grid_sample_patch_bwd2": 0}
-# channels-last copies the wrappers made of a wide image that lay otherwise
-# (chip_smoke.py holds it at 0 on the main path)
-LAYOUT_COPIES = {"grid_sample_patch": 0}
 
 # d^2 w_k / d ix d iy of the corners nw, ne, sw, se (the weights are
 # bilinear, so d^2 w_k / d ix^2 = d^2 w_k / d iy^2 = 0)
@@ -255,10 +249,8 @@ def _channels_last(x: torch.Tensor) -> torch.Tensor:
     """``x`` (V, C, H, W) as the kernels read it, through its strides: as
     it lies when its channels are innermost (the encoder's channels-last
     latent) or when C % 4 != 0 (the RGB, read by the per-point kernels);
-    else a channels-last copy, counted in ``LAYOUT_COPIES`` (none on the
-    main path)."""
+    else a channels-last copy (none on the main path)."""
     if x.shape[1] % 4 == 0 and x.stride(1) != 1:
-        LAYOUT_COPIES["grid_sample_patch"] += 1
         x = x.contiguous(memory_format=torch.channels_last)
     return x
 
@@ -271,39 +263,12 @@ def _strides(t: Optional[torch.Tensor], n: int) -> Tuple[int, ...]:
     return (0,) * n if t is None else t.stride()
 
 
-# argument types of the three C entry points (after them: the stream)
+# argument types of the three C entry points: pointers, then sizes and
+# strides
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
-_ARGTYPES = {
-    "mpsnerf_grid_sample_patch_fwd": [_PTR] * 3 + [_I64] * 9,
-    "mpsnerf_grid_sample_patch_bwd": [_PTR] * 5 + [_I64] * 12,
-    "mpsnerf_grid_sample_patch_bwd2": [_PTR] * 8 + [_I64] * 16,
-}
-_FNS = {}
-
-
-def _launch(symbol: str, counter: str, dev, *args):
-    """Call the C entry point ``symbol`` on the current stream of ``dev``
-    (pointers as ints, then sizes and strides) and count one launch of
-    ``counter``."""
-    fn = _FNS.get(symbol)
-    if fn is None:
-        from mpsnerf_torch.cuda_build import load_kernel_library
-
-        fn = getattr(load_kernel_library("grid_sample_patch"), symbol)
-        fn.argtypes = _ARGTYPES[symbol] + [_PTR]
-        fn.restype = ctypes.c_int
-        _FNS[symbol] = fn
-    # the raw current stream and device, without Stream objects or lazy
-    # init checks: the small RGB calls are bound by this host path
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    if dev.index == torch._C._cuda_getDevice():
-        err = fn(*args, stream)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
-    LAUNCHES[counter] += 1
+_FWD_ARGS = (_PTR,) * 3 + (_I64,) * 9
+_BWD_ARGS = (_PTR,) * 5 + (_I64,) * 12
+_BWD2_ARGS = (_PTR,) * 8 + (_I64,) * 16
 
 
 def grid_sample_patch_fwd_cuda(image: torch.Tensor, coords: torch.Tensor):
@@ -317,9 +282,9 @@ def grid_sample_patch_fwd_cuda(image: torch.Tensor, coords: torch.Tensor):
     if out.numel() > 0:
         img = _channels_last(image)
         crd = coords.contiguous()
-        _launch("mpsnerf_grid_sample_patch_fwd", "grid_sample_patch_fwd", dev,
-                img.data_ptr(), crd.data_ptr(), out.data_ptr(),
-                v, c, h, w, n, *img.stride())
+        cuda_build.launch("grid_sample_patch", "mpsnerf_grid_sample_patch_fwd",
+                          _FWD_ARGS, dev, img.data_ptr(), crd.data_ptr(),
+                          out.data_ptr(), v, c, h, w, n, *img.stride())
     return out
 
 
@@ -339,9 +304,10 @@ def grid_sample_patch_bwd_cuda(g, image, coords, need_image: bool,
     if n > 0 and (need_image or need_coords):
         img = _channels_last(image) if need_coords else image
         crd = coords.contiguous()
-        _launch("mpsnerf_grid_sample_patch_bwd", "grid_sample_patch_bwd", dev,
-                g.data_ptr(), img.data_ptr(), crd.data_ptr(), _ptr(d_hwc),
-                _ptr(d_coords), v, c, h, w, n, *g.stride(), *img.stride())
+        cuda_build.launch("grid_sample_patch", "mpsnerf_grid_sample_patch_bwd",
+                          _BWD_ARGS, dev, g.data_ptr(), img.data_ptr(),
+                          crd.data_ptr(), _ptr(d_hwc), _ptr(d_coords),
+                          v, c, h, w, n, *g.stride(), *img.stride())
     return (None if d_hwc is None else d_hwc.permute(0, 3, 1, 2)), d_coords
 
 
@@ -368,12 +334,12 @@ def grid_sample_patch_bwd2_cuda(g, image, coords, gg_image, gg_coords,
     if n > 0 and (need_g or need_image or need_coords):
         ggc = None if gg_coords is None else gg_coords.contiguous()
         crd = coords.contiguous()
-        _launch("mpsnerf_grid_sample_patch_bwd2", "grid_sample_patch_bwd2",
-                dev, g.data_ptr(), image.data_ptr(),
-                crd.data_ptr(), _ptr(gg_image), _ptr(ggc),
-                _ptr(d_g), _ptr(d_hwc), _ptr(d_coords),
-                v, c, h, w, n, *g.stride(), *image.stride(),
-                *_strides(gg_image, 4))
+        cuda_build.launch("grid_sample_patch",
+                          "mpsnerf_grid_sample_patch_bwd2", _BWD2_ARGS, dev,
+                          g.data_ptr(), image.data_ptr(), crd.data_ptr(),
+                          _ptr(gg_image), _ptr(ggc), _ptr(d_g), _ptr(d_hwc),
+                          _ptr(d_coords), v, c, h, w, n, *g.stride(),
+                          *image.stride(), *_strides(gg_image, 4))
     return d_g, (None if d_hwc is None else d_hwc.permute(0, 3, 1, 2)), \
         d_coords
 

@@ -37,9 +37,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-# launches of the CUDA kernels since the last reset (chip_smoke.py reads it)
-LAUNCHES = {"nearest_vertex": 0, "vertex_buckets": 0,
-            "nearest_vertex_packed": 0}
+from mpsnerf_torch import cuda_build
 
 BUCKET = 32  # vertices per bucket
 GROUP = 32   # queries per warp
@@ -47,6 +45,11 @@ _MORTON_BITS = 10
 _SPREAD = {}  # device -> (1024,) int64: a 10-bit cell index, bits spread 3x
 _BUILD_RUN = 256  # keys a warp of the build kernel sorts in registers
 _BUILD_SHARED_KEYS = 8192  # above: the build kernel merges in a scratch
+# the C entry points' argument types: pointers and sizes
+_PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
+_BUCKETS_ARGS = (_PTR, _I64, _PTR, _PTR, _PTR)
+_NN_ARGS = (_PTR, _I64, _PTR, _PTR, _I64, _PTR, _PTR, _PTR)
+_PACKED_ARGS = (_PTR, _PTR, _I64, _I64, _PTR, _I64, _I64)
 
 
 def _d2(diff: torch.Tensor) -> torch.Tensor:
@@ -177,10 +180,11 @@ def build_vertex_buckets_cuda(verts: torch.Tensor) -> VertexBuckets:
                          "contiguous float32 on a CUDA device, not "
                          f"{verts.dtype} on {verts.device}")
     table, boxes, scratch = _build_buffers(verts)
-    _launch("mpsnerf_vertex_buckets", "vertex_buckets", verts.device,
-            verts.data_ptr(), verts.shape[0],
-            0 if scratch is None else scratch.data_ptr(),
-            table.data_ptr(), boxes.data_ptr())
+    cuda_build.launch("nearest_vertex", "mpsnerf_vertex_buckets",
+                      _BUCKETS_ARGS, verts.device,
+                      verts.data_ptr(), verts.shape[0],
+                      0 if scratch is None else scratch.data_ptr(),
+                      table.data_ptr(), boxes.data_ptr())
     return VertexBuckets(table, boxes, verts.shape[0])
 
 
@@ -302,37 +306,6 @@ def _check_buckets(buckets: VertexBuckets, verts: torch.Tensor):
                              f"float32 on {verts.device}")
 
 
-_PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
-_ARGTYPES = {  # after them: the stream
-    "mpsnerf_nearest_vertex": [_PTR, _I64, _PTR, _PTR, _I64, _PTR, _PTR,
-                               _PTR],
-    "mpsnerf_vertex_buckets": [_PTR, _I64, _PTR, _PTR, _PTR],
-}
-_FNS = {}
-
-
-def _launch(symbol: str, counter: str, dev, *args):
-    """Call ``symbol`` of ``csrc/nearest_vertex.cu`` on the current stream
-    of ``dev`` and count one launch of ``counter``."""
-    fn = _FNS.get(symbol)
-    if fn is None:
-        from mpsnerf_torch.cuda_build import load_kernel_library
-
-        fn = getattr(load_kernel_library("nearest_vertex"), symbol)
-        fn.argtypes = _ARGTYPES[symbol] + [_PTR]
-        fn.restype = ctypes.c_int
-        _FNS[symbol] = fn
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    if dev.index == torch._C._cuda_getDevice():
-        err = fn(*args, stream)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
-    LAUNCHES[counter] += 1
-
-
 def nearest_vertex_cuda(query: torch.Tensor, verts: torch.Tensor,
                         buckets: Optional[VertexBuckets] = None,
                         pairs: Optional[torch.Tensor] = None):
@@ -354,11 +327,12 @@ def nearest_vertex_cuda(query: torch.Tensor, verts: torch.Tensor,
     d2 = torch.empty(n, dtype=torch.float32, device=dev)
     ids = torch.empty(n, dtype=torch.int64, device=dev)
     if n > 0:
-        _launch("mpsnerf_nearest_vertex", "nearest_vertex", dev,
-                query.data_ptr(), n, buckets.table.data_ptr(),
-                buckets.boxes.data_ptr(), buckets.boxes.shape[0],
-                d2.data_ptr(), ids.data_ptr(),
-                0 if pairs is None else pairs.data_ptr())
+        cuda_build.launch(
+            "nearest_vertex", "mpsnerf_nearest_vertex", _NN_ARGS, dev,
+            query.data_ptr(), n, buckets.table.data_ptr(),
+            buckets.boxes.data_ptr(), buckets.boxes.shape[0],
+            d2.data_ptr(), ids.data_ptr(),
+            0 if pairs is None else pairs.data_ptr())
     return d2, ids
 
 
@@ -453,30 +427,19 @@ def nearest_vertex_packed_cuda(query: torch.Tensor, verts: torch.Tensor,
                                qpt: int = 4, tile: int = VERT_TILE):
     """The packed-key CUDA kernel at launch variant ``(qpt, tile)``:
     ``(d2 (N,) f32, ids (N,) int64)``."""
-    from mpsnerf_torch.cuda_build import load_kernel_library
-
     _check_cuda_args(query, verts)
     _check_id_range(verts.shape[0])
     if qpt not in (1, 2, 4) or not 1 <= tile <= 3072:
         raise ValueError(f"nearest_vertex_packed_cuda: no variant qpt={qpt}, "
                          f"tile={tile}")
-    lib = load_kernel_library("nearest_vertex_packed")
-    fn = lib.mpsnerf_nearest_vertex_packed
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     n = query.shape[0]
     ids = torch.empty(n, dtype=torch.int64, device=query.device)
-    with torch.cuda.device(query.device):
-        stream = torch.cuda.current_stream(query.device).cuda_stream
-        err = fn(query.data_ptr(), verts.data_ptr(), n, verts.shape[0],
-                 ids.data_ptr(), qpt, tile, stream)
-    if err != 0:
-        raise RuntimeError(f"nearest_vertex_packed kernel launch failed: "
-                           f"CUDA error {err}")
     if n > 0:
-        LAUNCHES["nearest_vertex_packed"] += 1
+        cuda_build.launch(
+            "nearest_vertex_packed", "mpsnerf_nearest_vertex_packed",
+            _PACKED_ARGS, query.device,
+            query.data_ptr(), verts.data_ptr(), n, verts.shape[0],
+            ids.data_ptr(), qpt, tile)
     return _d2(query - verts[ids]), ids
 
 

@@ -16,9 +16,8 @@ import ctypes
 
 import torch
 
-# launches of the CUDA kernel since the last reset, replayed ones included
-# (``renderer/tile_graphs.py`` adds a replay's)
-LAUNCHES = {"layer_norm": 0}
+from mpsnerf_torch import cuda_build
+
 # the widest row the kernel holds in registers (5 floats a lane)
 MAX_WIDTH = 160
 
@@ -31,19 +30,7 @@ def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
     return xc * torch.rsqrt(var + eps) * weight + bias
 
 
-_FN = []
-
-
-def _kernel():
-    if not _FN:
-        from mpsnerf_torch.cuda_build import load_kernel_library
-
-        fn = load_kernel_library("layer_norm").mpsnerf_layer_norm
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [
-            ctypes.c_double, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN.append(fn)
-    return _FN[0]
+_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 2 + (ctypes.c_double,)
 
 
 def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
@@ -70,18 +57,8 @@ def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
     out = torch.empty_like(x)
     rows = x.numel() // d
     if rows:
-        dev, fn = x.device, _kernel()
-        args = (x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), rows, d, float(eps),
-                torch._C._cuda_getCurrentRawStream(dev.index))
-        if dev.index == torch._C._cuda_getDevice():
-            err = fn(*args)
-        else:
-            with torch.cuda.device(dev):
-                err = fn(*args)
-        if err != 0:
-            raise RuntimeError(f"mpsnerf_layer_norm launch failed: CUDA "
-                               f"error {err}")
-        LAUNCHES["layer_norm"] += 1
+        cuda_build.launch("layer_norm", "mpsnerf_layer_norm", _ARGS, x.device,
+                          x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                          out.data_ptr(), rows, d, float(eps))
     return out
 

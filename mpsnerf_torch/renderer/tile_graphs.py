@@ -35,9 +35,7 @@ blend weights, the model's parameters) and on the shapes that fix their
 kernels; a change of key captures them again, and one source's graphs are
 kept at a time.  The replay runs the same kernels in the same order on the
 same values as the eager tile, so it is bit-equal to it.  A replayed
-LayerNorm makes no host call, so each replay of C adds the LayerNorm
-launches C captured to ``layer_norm.LAUNCHES``, which then counts the
-kernels run, as on the eager path.
+LayerNorm makes no host call: its launches are made once, at the capture.
 
 :func:`graphable` says which tiles qualify: the plain ``MPSNeRF`` query
 (no correction or skinning field, ``query`` not overridden) on a CUDA
@@ -53,7 +51,7 @@ from typing import Optional, Tuple
 import torch
 
 from mpsnerf_torch.models.mps_nerf import MPSNeRF
-from mpsnerf_torch.ops import knn, layer_norm
+from mpsnerf_torch.ops import knn
 from mpsnerf_torch.smpl.lbs import PoseTransforms, world_to_smpl
 
 
@@ -92,7 +90,6 @@ class _Captured:
                                       device=dev)
                           if model.append_rgb or model.blend_rgb else None)
         self.replays = None
-        self.replay_norms = 0  # LayerNorm launches a replay of C
 
     def set_transforms(self, transforms) -> None:
         torch._foreach_copy_(list(self.tf_s) + list(self.tf_t),
@@ -146,14 +143,9 @@ class _Captured:
             torch.cuda.current_stream(dev).wait_stream(stream)
             pool = torch.cuda.graph_pool_handle()
             graphs = [torch.cuda.CUDAGraph() for _ in stretches]
-            norms = layer_norm.LAUNCHES["layer_norm"]
             for graph, stretch in zip(graphs, stretches):
                 with torch.cuda.graph(graph, pool=pool, stream=stream):
                     stretch()
-            # a capture launches nothing: its LayerNorm calls are counted
-            # at each replay instead
-            self.replay_norms = layer_norm.LAUNCHES["layer_norm"] - norms
-            layer_norm.LAUNCHES["layer_norm"] = norms
         self.replays = [g.replay for g in graphs]
 
     def run(self, pts, viewdirs, ids, t_buckets, out) -> None:
@@ -164,7 +156,6 @@ class _Captured:
         if self.replays is None:
             self._capture(t_buckets)
         self._tile(*self.replays, t_buckets)
-        layer_norm.LAUNCHES["layer_norm"] += self.replay_norms
         out.copy_(self.raw)
 
 

@@ -1,1 +1,2 @@
-"""Measurement tools of the port that run on the card."""
+"""The port's tools: the proofs, the dataset check and the 1-NN variant
+probe."""

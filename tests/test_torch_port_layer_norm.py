@@ -12,13 +12,13 @@ from torch import nn
 from mpsnerf_torch.models import transformer
 from mpsnerf_torch.models.transformer import PreNorm, autograd_records
 from mpsnerf_torch.ops.layer_norm import (
-    LAUNCHES,
     MAX_WIDTH,
     layer_norm_cuda,
     layer_norm_plain,
 )
 # by the test directory's own path: a machine with the card may have an
 # installed package named ``tests`` that hides this one
+from kernel_launches import launches  # noqa: F401 (a fixture)
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -89,16 +89,15 @@ def test_the_kernel_refuses_rows_it_does_not_hold(d):
 @pytest.mark.card
 @pytest.mark.parametrize("rows", [0, 1, 3, 49152])
 @pytest.mark.parametrize("d", [155, 128, 37, MAX_WIDTH])
-def test_the_kernel_against_nn_layer_norm(card, d, rows):
+def test_the_kernel_against_nn_layer_norm(card, d, rows, launches):
     n = _norm(d, 7, card)
     x = _rows((rows, d), 8, card)
-    launches = LAUNCHES["layer_norm"]
     with torch.no_grad():
         out = layer_norm_cuda(x, n.weight, n.bias, n.eps)
         ref = n(x)
         plain = layer_norm_plain(x, n.weight, n.bias, n.eps)
     torch.cuda.synchronize()
-    assert LAUNCHES["layer_norm"] == launches + (1 if rows else 0)
+    assert launches == ({"mpsnerf_layer_norm": 1} if rows else {})
     assert out.shape == x.shape and out.dtype == torch.float32
     if rows:
         scale = ref.abs().max()

@@ -7,6 +7,7 @@ versions; the CUDA kernels themselves are held against those plain
 versions on the card by ``chip_smoke.py``.
 """
 
+import ctypes
 import os
 import subprocess
 import sys
@@ -27,6 +28,7 @@ from mpsnerf_tpu.smpl import lbs as j_lbs
 from mpsnerf_tpu.smpl import mesh as j_mesh
 from mpsnerf_tpu.smpl.model import synthetic_smpl as j_synthetic_smpl
 
+from mpsnerf_torch import cuda_build
 from mpsnerf_torch.ops import body_grid as t_body_grid
 from mpsnerf_torch.ops import compact as t_compact
 from mpsnerf_torch.ops import composite as t_composite
@@ -36,6 +38,7 @@ from mpsnerf_torch.ops import positional as t_positional
 from mpsnerf_torch.smpl import lbs as t_lbs
 from mpsnerf_torch.smpl import mesh as t_mesh
 from mpsnerf_torch.smpl.model import synthetic_smpl as t_synthetic_smpl
+from tests.kernel_launches import launches  # noqa: F401 (a fixture)
 from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -158,15 +161,15 @@ class TestNearestVertex:
         d2b, idsb = t_knn.nearest_vertex_plain(q, v)
         assert torch.equal(d2, d2b) and torch.equal(ids, idsb)
 
-    def test_cpu_tensors_never_count_a_launch(self, rig):
+    def test_cpu_tensors_never_count_a_launch(self, rig, launches):
         _, t_smpl, _ = rig
-        before = t_knn.LAUNCHES["nearest_vertex"]
         t_knn.nearest_vertex(t_smpl.v_template[:100].contiguous(),
                              t_smpl.v_template)
-        assert t_knn.LAUNCHES["nearest_vertex"] == before == 0
+        assert not launches
 
     @pytest.mark.parametrize("case", ["cpu", "dtype", "shape"])
-    def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(self, case):
+    def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(
+            self, case, launches):
         """The kernel wrapper raises (it never falls back) on a CPU tensor,
         a non-float32 tensor or a non-(n, 3) shape."""
         q = torch.zeros(8, 3)
@@ -177,7 +180,7 @@ class TestNearestVertex:
             q = torch.zeros(8, 4)
         with pytest.raises((ValueError, TypeError)):
             t_knn.nearest_vertex_cuda(q, v)
-        assert t_knn.LAUNCHES["nearest_vertex"] == 0
+        assert not launches
 
 
 def _culling_case(kind, nv, seed=0, nq=1500):
@@ -377,16 +380,17 @@ class TestBucketedNearestVertex:
         np.testing.assert_array_equal(b.boxes.numpy(), boxes)
 
     @pytest.mark.parametrize("case", ["cpu", "shape"])
-    def test_cuda_bucket_build_rejects_what_it_does_not_take(self, case):
+    def test_cuda_bucket_build_rejects_what_it_does_not_take(
+            self, case, launches):
         """The build kernel's wrapper raises on a CPU table or a non-(V, 3)
         one (it never falls back); the CPU dispatch counts no launch."""
         v = torch.zeros(8, 3) if case == "cpu" else torch.zeros(8, 4)
         with pytest.raises(ValueError):
             t_knn.build_vertex_buckets_cuda(v)
         t_knn.build_vertex_buckets(torch.zeros(8, 3))
-        assert t_knn.LAUNCHES["vertex_buckets"] == 0
+        assert not launches
 
-    def test_cpu_dispatch_ignores_buckets(self, rig):
+    def test_cpu_dispatch_ignores_buckets(self, rig, launches):
         """On the CPU ``nearest_vertex`` is the brute force whether or not
         buckets are passed, and counts no launch."""
         _, t_smpl, _ = rig
@@ -395,7 +399,7 @@ class TestBucketedNearestVertex:
         b = t_knn.build_vertex_buckets(v)
         a, c = t_knn.nearest_vertex(q, v, b), t_knn.nearest_vertex_plain(q, v)
         assert all(torch.equal(x, y) for x, y in zip(a, c))
-        assert t_knn.LAUNCHES["nearest_vertex"] == 0
+        assert not launches
 
     def test_cpu_table_gets_no_buckets(self, rig, monkeypatch):
         """``kernel_buckets`` builds nothing for a CPU table (the brute
@@ -786,18 +790,16 @@ def _k2_plain(img, crd, g, gg_i, gg_c, which):
 def test_layout_copies_only_for_wide_images_with_spread_channels():
     """The wrappers' layout rule, on the CPU (nothing is launched): a
     channels-last latent and a (V, 3, H, W) RGB are read as they lie; only
-    a wide image whose channels are not innermost is copied, and counted."""
-    copies = t_grid_sample.LAYOUT_COPIES
-    before = copies["grid_sample_patch"]
+    a wide image whose channels are not innermost is copied."""
     latent = torch.zeros(2, 8, 5, 6).contiguous(
         memory_format=torch.channels_last)
     rgb = torch.zeros(2, 3, 5, 6)
     assert t_grid_sample._channels_last(latent) is latent
     assert t_grid_sample._channels_last(rgb) is rgb
-    assert copies["grid_sample_patch"] == before
-    spread = t_grid_sample._channels_last(torch.zeros(2, 8, 5, 6))
-    assert spread.stride(1) == 1 and copies["grid_sample_patch"] == before + 1
-    copies["grid_sample_patch"] = before
+    wide = torch.arange(2 * 8 * 5 * 6.0).view(2, 8, 5, 6)
+    spread = t_grid_sample._channels_last(wide)
+    assert spread is not wide and spread.stride(1) == 1
+    assert torch.equal(spread, wide)
 
 
 def test_grid_sample_4_corner_form_matches_jax():
@@ -811,7 +813,7 @@ def test_grid_sample_4_corner_form_matches_jax():
 
 
 @pytest.mark.parametrize("which", ["fwd", "bwd", "bwd2"])
-def test_grid_sample_cuda_wrappers_reject_cpu_tensors(which):
+def test_grid_sample_cuda_wrappers_reject_cpu_tensors(which, launches):
     """A kernel wrapper never falls back: CPU tensors raise there, and the
     dispatching function's CPU path counts no launch."""
     img, crd, g, gg_i, gg_c = map(_t, _k2_case(5))
@@ -825,7 +827,7 @@ def test_grid_sample_cuda_wrappers_reject_cpu_tensors(which):
             t_grid_sample.grid_sample_patch_bwd2_cuda(
                 g, img, crd, gg_i, gg_c, (True, True, True))
     _k2_torch(*_k2_case(5), "bwd2")
-    assert all(n == 0 for n in t_grid_sample.LAUNCHES.values())
+    assert not launches
 
 
 # ---- the packed-key 1-NN (the probe's kernel_vT / _nn_kernel function) ----
@@ -866,7 +868,7 @@ def test_packed_plain_key_semantics():
     assert ids_far.tolist() == [0, 3]
 
 
-def test_packed_raises_where_jax_raises():
+def test_packed_raises_where_jax_raises(launches):
     """Padded to the 1152-vertex tile the count must fit 13 bits: 8064
     vertices pass, 8065 raise, in both packages."""
     q = np.zeros((4, 3), np.float32)
@@ -880,7 +882,38 @@ def test_packed_raises_where_jax_raises():
             f()
     with pytest.raises(ValueError):
         t_knn.nearest_vertex_packed_cuda(_t(q), _t(ok))
-    assert t_knn.LAUNCHES["nearest_vertex_packed"] == 0
+    assert not launches
+
+
+def test_a_failed_launch_raises_naming_its_symbol(monkeypatch):
+    """``cuda_build.launch`` binds the symbol with its argument types and
+    the stream last, calls it on the device's current stream, and turns a
+    non-zero return (a CUDA error) into a RuntimeError naming the
+    symbol."""
+    calls = []
+    stub = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                            ctypes.c_void_p)(
+        lambda ptr, n, stream: calls.append((ptr, n, stream)) or 1)
+
+    class Library:
+        mpsnerf_stub_kernel = stub
+
+    monkeypatch.setattr(cuda_build, "load_kernel_library",
+                        lambda name: Library)
+    # unbound now; the binding is dropped after the test
+    monkeypatch.setitem(cuda_build._ENTRY_POINTS, "mpsnerf_stub_kernel",
+                        None)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0x5EED, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0,
+                        raising=False)
+    with pytest.raises(RuntimeError, match="mpsnerf_stub_kernel.*error 1"):
+        cuda_build.launch("stub", "mpsnerf_stub_kernel",
+                          (ctypes.c_void_p, ctypes.c_int64),
+                          torch.device("cuda", 0), 0x100, 7)
+    assert calls == [(0x100, 7, 0x5EED)]
+    assert list(stub.argtypes) == [ctypes.c_void_p, ctypes.c_int64,
+                                   ctypes.c_void_p]
 
 
 def test_vertex_normals(rig):

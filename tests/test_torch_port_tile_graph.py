@@ -11,7 +11,8 @@ On the card: a replayed view equal to the eager one at 1, 2 and 4 tiles,
 for another target pose of the source and after a change of source (a new
 capture); the replays under ``set_sync_debug_mode("error")``; one K1 and
 two K2-forward launches a tile, each K2 call with coords that still hold
-their values after the view, and the replayed LayerNorm launches counted."""
+their values after the view, and the LayerNorm launched at the capture
+only."""
 
 import numpy as np
 import pytest
@@ -20,14 +21,16 @@ import torch
 from mpsnerf_torch.data import attach_body_grid, to_device_input
 from mpsnerf_torch.data.synthetic import SyntheticHumanDataset
 from mpsnerf_torch.eval.runner import ViewRenderer, view_rays
+from mpsnerf_torch.models import transformer
 from mpsnerf_torch.models.correction_f3d import CorrectionF3D
 from mpsnerf_torch.models.mps_nerf import MPSNeRF
-from mpsnerf_torch.ops import grid_sample, knn, layer_norm
+from mpsnerf_torch.ops import grid_sample, knn
 from mpsnerf_torch.renderer import render, tile_graphs
 from mpsnerf_torch.renderer.tile_graphs import TileGraphs, graphable
 from mpsnerf_torch.utils import spans
 # by the test directory's own path: a machine with the card may have an
 # installed package named ``tests`` that hides this one
+from kernel_launches import launches  # noqa: F401 (a fixture)
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_SAMPLES = 16
@@ -299,16 +302,30 @@ def test_replays_do_not_synchronise(card_scene, monkeypatch):
 
 
 @pytest.mark.card
-def test_each_tile_launches_k1_once_and_k2_twice(card_scene, monkeypatch):
+def test_each_tile_launches_k1_once_and_k2_twice(card_scene, monkeypatch,
+                                                 launches):
     """A spy on the launchers, as the benchmark's: one K1 and two K2
     forward calls a replayed tile, each K2 call's coords its own and
-    unchanged after the view; ``layer_norm.LAUNCHES`` counts the replayed
-    LayerNorms (the transformer's 2 layers x 2 norms a tile)."""
+    unchanged after the view; the LayerNorms (the transformer's 2 layers
+    x 2 norms a tile) launched by the host at the capture, after the
+    tile's one eager run, and never at a replay; every tile replayed."""
     s = card_scene
     view = s["views"][1]
     tile = _tile_for(view[-1], 4)
     graphs = TileGraphs()
-    _render(s, view, tile, graphs)  # the capture
+    capturing, norm = [], transformer.layer_norm_cuda
+
+    def recorded(*a, **k):
+        capturing.append(torch.cuda.is_current_stream_capturing())
+        return norm(*a, **k)
+
+    monkeypatch.setattr(transformer, "layer_norm_cuda", recorded)
+    _render(s, view, tile, graphs)  # an eager tile, the capture, replays
+    torch.cuda.synchronize()
+    assert launches["mpsnerf_layer_norm"] == len(capturing) == 8
+    assert capturing == [False] * 4 + [True] * 4
+    assert graphs.graph_tiles == graphs.tiles == 4
+    launches.clear()
     k1, fwd = knn.nearest_vertex_cuda, grid_sample.grid_sample_patch_fwd_cuda
     seen = {"k1": [], "fwd": []}
 
@@ -322,11 +339,10 @@ def test_each_tile_launches_k1_once_and_k2_twice(card_scene, monkeypatch):
 
     monkeypatch.setattr(knn, "nearest_vertex_cuda", k1_spy)
     monkeypatch.setattr(grid_sample, "grid_sample_patch_fwd_cuda", fwd_spy)
-    norms = layer_norm.LAUNCHES["layer_norm"]
     out = _render(s, view, tile, graphs)
     torch.cuda.synchronize()
-    assert graphs._captured.replay_norms == 4
-    assert layer_norm.LAUNCHES["layer_norm"] - norms == 4 * 4
+    assert launches["mpsnerf_layer_norm"] == 0
+    assert graphs.graph_tiles == graphs.tiles == 8
     # the fine pre-pass's 1-NN over the candidates, then one a tile
     assert len(seen["k1"]) == 5 and seen["k1"][1:] == [tile] * 4
     assert len(seen["fwd"]) == 8
